@@ -1,0 +1,115 @@
+"""The port's frontend against the reference on the same rendered images:
+renderer, image ops, FAST/NMS/top-k, and the ORB frame ingest.
+
+Measured on this suite's frames (seed 13 sequence, 640x480, CPU): keypoint
+sets (x, y, octave) agree 99.61-100% (intersection over union) at 4 levels
+x 512 keypoints, and 99.42-99.80% at the library's 8 levels x 2048;
+descriptor bits on the shared keypoints agree 100% in both. The floors below
+are 99% and 98%. The float32 pyramid sums run in another order in each
+framework, so a FAST score at the threshold or a tie in the grid selection
+can tip, and a bit whose two bf16 samples are one rounding step apart can
+flip.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ucoslam_tpu.config import Params
+from ucoslam_tpu.features.frame_extractor import FrameExtractor as RefExtractor
+from ucoslam_tpu.geometry.camera import CameraParams as RefCamera
+from ucoslam_tpu.io.synthetic import SyntheticSequence as RefSequence
+from ucoslam_tpu.ops import fast as ref_fast
+from ucoslam_tpu.ops import image as ref_image
+from ucoslam_tpu_torch.features.frame_extractor import FrameExtractor
+from ucoslam_tpu_torch.geometry.camera import CameraParams
+from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
+from ucoslam_tpu_torch.ops import fast, image
+
+torch.set_num_threads(2)
+
+SEQ = dict(n_frames=12, seed=13, n_points=700, motion_scale=0.6, roll_deg=12.0,
+           brightness_drift=0.15)
+FRAMES = (0, 5, 11)
+
+
+@pytest.fixture(scope="module")
+def seqs():
+    ref = RefSequence(cam=RefCamera.create(500.0, 500.0, 320.0, 240.0), **SEQ)
+    port = SyntheticSequence(cam=CameraParams.create(500.0, 500.0, 320.0, 240.0), **SEQ)
+    return ref, port
+
+
+def test_render_byte_identical(seqs):
+    ref, port = seqs
+    np.testing.assert_array_equal(port.gt_positions(), ref.gt_positions())
+    for i in FRAMES:
+        a, b = port.render(i), ref.render(i)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes()
+        np.testing.assert_array_equal(port.gt_pose(i), ref.gt_pose(i))
+
+
+def test_image_ops_match(seqs):
+    img = seqs[1].render(5).astype(np.float32)  # float64 under brightness drift
+    t, j = torch.from_numpy(img), jnp.asarray(img)
+    bgr = np.stack([img, img * 0.5, img * 0.25], -1)
+    np.testing.assert_allclose(
+        image.rgb_to_gray(torch.from_numpy(bgr)).numpy(),
+        np.asarray(ref_image.rgb_to_gray(jnp.asarray(bgr))), rtol=1e-6, atol=1e-4)
+    for a, b in zip(image.build_pyramid(t, 4, 1.2), ref_image.build_pyramid(j, 4, 1.2)):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-3)
+    np.testing.assert_allclose(
+        image.gaussian_blur(t).numpy(), np.asarray(ref_image.gaussian_blur(j)), rtol=1e-5, atol=1e-3)
+    xy = np.random.default_rng(0).uniform([0, 0], [640, 480], (50, 2)).astype(np.float32)
+    np.testing.assert_array_equal(
+        image.extract_patches(t, torch.from_numpy(xy), 18).numpy(),
+        np.asarray(ref_image.extract_patches(j, jnp.asarray(xy), 18)))
+
+
+def test_fast_nms_topk_exact(seqs):
+    """On the same input image the detector stages are exact, ties included."""
+    img = seqs[1].render(11).astype(np.float32)
+    t, j = torch.from_numpy(img), jnp.asarray(img)
+    s_port, s_ref = fast.fast_score_map(t, 7.0), ref_fast.fast_score_map(j, 7.0)
+    np.testing.assert_array_equal(s_port.numpy(), np.asarray(s_ref))
+    n_port, n_ref = fast.nms3x3(s_port), ref_fast.nms3x3(s_ref)
+    np.testing.assert_array_equal(n_port.numpy(), np.asarray(n_ref))
+    # quantized scores force many equal values: the order must still agree
+    q = np.floor(np.asarray(n_ref) / 8.0).astype(np.float32)
+    for got, want in zip(fast.topk_grid(torch.from_numpy(q), 32, 4, 300),
+                         ref_fast.topk_grid(jnp.asarray(q), 32, 4, 300)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _agreement(port_frame, ref_frame):
+    """-> (keypoint-set agreement, descriptor-bit agreement over shared kpts)."""
+    def keyset(xy, octave, valid):
+        return {(float(x), float(y), int(o)): k
+                for k, ((x, y), o, v) in enumerate(zip(xy, octave, valid)) if v}
+
+    kp_p = keyset(port_frame.xy.numpy(), port_frame.octave.numpy(), port_frame.valid.numpy())
+    kp_r = keyset(np.asarray(ref_frame.xy), np.asarray(ref_frame.octave), np.asarray(ref_frame.valid))
+    shared = kp_p.keys() & kp_r.keys()
+    kp_agree = len(shared) / max(len(kp_p.keys() | kp_r.keys()), 1)
+    dp = port_frame.desc.numpy().view(np.uint32)
+    dr = np.asarray(ref_frame.desc)
+    ip = np.array([kp_p[k] for k in shared])
+    ir = np.array([kp_r[k] for k in shared])
+    diff = np.unpackbits((dp[ip] ^ dr[ir]).view(np.uint8)).sum()
+    return kp_agree, 1.0 - diff / (len(shared) * 256)
+
+
+def test_frame_extractor_agreement(seqs):
+    params = Params().replace(detectMarkers=False, maxKeyPointsPerFrame=512, nOctaveLevels=4)
+    ref = RefExtractor(params, RefCamera.create(500.0, 500.0, 320.0, 240.0))
+    port = FrameExtractor(params, CameraParams.create(500.0, 500.0, 320.0, 240.0), device="cpu")
+    for i in FRAMES:
+        img = seqs[1].render(i)
+        f_port, f_ref = port.process(img, i), ref.process(img, i)
+        assert f_port.xy.shape == (512, 2) and f_port.desc.dtype == torch.int32
+        assert int(f_port.valid.sum()) > 300
+        kp_agree, bit_agree = _agreement(f_port, f_ref)
+        assert kp_agree >= 0.99, f"frame {i}: keypoint-set agreement {kp_agree:.4f}"
+        assert bit_agree >= 0.98, f"frame {i}: descriptor-bit agreement {bit_agree:.5f}"

@@ -1,0 +1,120 @@
+"""Write the reference map and reverse-sweep trajectory the PyTorch port is held to.
+
+Runs the JAX package (on any backend; the CPU is enough) through the two-pass
+protocol on the rendered `mono` scenario:
+
+- pass 1: SLAM over frames 0..F-1 from a fresh system, then `saveToFile`;
+- pass 2: `readFromFile` -> `setMode(LOCALIZATION)` -> `process(render(i))`
+  for i = F-1 .. 0 (the reverse sweep), starting from the pose the
+  checkpoint restores.
+
+The sequence is the `mono` parity scenario at the library's default widths
+(the constants below). Outputs, under `--out-dir` (default
+`data/torch_port`): `mono_map.slm` (the checkpoint) and
+`mono_reverse_jax.json` (pass-1/2 tracked counts, ATE, the pass-2 poses,
+and the scene's depth extent used by the per-frame gate).
+
+    JAX_PLATFORMS=cpu python -m tools.port.make_reference_map
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+from ucoslam_tpu.api import UcoSlam
+from ucoslam_tpu.config import Mode, Params
+from ucoslam_tpu.geometry.camera import CameraParams
+from ucoslam_tpu.geometry.horn import ate_rmse
+from ucoslam_tpu.io.synthetic import SyntheticSequence
+
+SEQUENCE = dict(n_frames=60, n_points=1600, seed=5)  # tools/parity/run_parity.py `mono`
+CAMERA = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
+PARAMS = Params().replace(detectMarkers=False, maxDescDistance=60.0)
+
+
+def camera_center(pose_f2g: np.ndarray) -> np.ndarray:
+    pose = np.asarray(pose_f2g, np.float64)
+    return -pose[:3, :3].T @ pose[:3, 3]
+
+
+def ate_of(poses: dict[int, np.ndarray], seq: SyntheticSequence) -> float:
+    idx = sorted(poses)
+    if len(idx) < 3:
+        return float("inf")
+    est = np.stack([camera_center(poses[i]) for i in idx])
+    return ate_rmse(est, seq.gt_positions()[idx], with_scale=True)
+
+
+def map_depth_extent(slam: UcoSlam) -> float:
+    """1st-99th percentile spread of the active map points' z (the map frame
+    is the first keyframe's camera, so z is depth), in map units."""
+    st = slam.map.state
+    z = np.asarray(st.pt_pos)[np.asarray(st.pt_active), 2]
+    lo, hi = np.percentile(z, [1.0, 99.0])
+    return float(hi - lo)
+
+
+def run(params: Params, cam: CameraParams, seq: SyntheticSequence, map_path: str):
+    """-> (summary dict, reverse-sweep poses {frame: 4x4})."""
+    frames = seq.n_frames
+    slam = UcoSlam()
+    slam.setParams(None, params, cam)
+    fwd = {}
+    for i in range(frames):
+        pose = slam.process(seq.render(i), fseq=i)
+        if pose is not None:
+            fwd[i] = np.asarray(pose, np.float32)
+    saved_signature = slam.map.signature()
+    slam.saveToFile(map_path)
+    extent = map_depth_extent(slam)
+
+    loc = UcoSlam()
+    loc.readFromFile(map_path, cam)
+    loc.setMode(Mode.LOCALIZATION)
+    rev = {}
+    for i in reversed(range(frames)):
+        pose = loc.process(seq.render(i), fseq=i)
+        if pose is not None:
+            rev[i] = np.asarray(pose, np.float32)
+    summary = {
+        "pass1_tracked": len(fwd),
+        "pass1_ate": ate_of(fwd, seq),
+        "pass2_tracked": len(rev),
+        "pass2_ate": ate_of(rev, seq),
+        "n_points": slam.map.n_points,
+        "n_keyframes": slam.map.n_keyframes,
+        "map_signature": saved_signature,
+        "depth_extent": extent,
+    }
+    return summary, rev
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out-dir", default="data/torch_port")
+    args = ap.parse_args(argv)
+
+    os.makedirs(args.out_dir, exist_ok=True)
+    c = CAMERA
+    cam = CameraParams.create(c["fx"], c["fy"], c["cx"], c["cy"], width=c["width"], height=c["height"])
+    seq = SyntheticSequence(cam=cam, **SEQUENCE)
+    map_path = os.path.join(args.out_dir, "mono_map.slm")
+    summary, rev = run(PARAMS, cam, seq, map_path)
+    out = {
+        "sequence": SEQUENCE,
+        "camera": CAMERA,
+        **summary,
+        "slm_bytes": os.path.getsize(map_path),
+        "reverse_poses": {str(i): rev[i].tolist() for i in sorted(rev)},
+    }
+    with open(os.path.join(args.out_dir, "mono_reverse_jax.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps({k: v for k, v in out.items() if k != "reverse_poses"}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,85 @@
+"""Build and load the hand-written CUDA kernels (`ucoslam_tpu_torch/csrc/*.cu`).
+
+Each source is compiled on its own by `nvcc` for `sm_90a` into a shared
+library with a plain C interface, loaded with `ctypes`. The library lands in
+`build/ucoslam_tpu_torch/` at the repository root, named after a hash of the
+source and the flags, so an edited source is rebuilt and an unchanged one is
+reused. Nothing is built when the package is imported: the first launch on a
+CUDA tensor builds, and a missing `nvcc` or a failed build raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "ucoslam_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+)
+
+#: seconds spent in nvcc by this process, per kernel source
+build_seconds: dict[str, float] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+@functools.cache
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load `csrc/<name>.cu`; cached per process."""
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    if not lib.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            capture_output=True, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+        os.replace(tmp, lib)
+        build_seconds[name] = time.perf_counter() - t0
+    return ctypes.CDLL(str(lib))
+
+
+def check_launch(err: int, kernel: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a C launcher."""
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError_t {err}")
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_cuda_args(device: torch.device, **tensors: tuple[torch.Tensor, torch.dtype, tuple]) -> None:
+    """Validate device, dtype, shape (None = any extent) and contiguity."""
+    for name, (t, dtype, shape) in tensors.items():
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+        if t.dim() != len(shape) or any(
+            s is not None and s != d for s, d in zip(shape, t.shape)
+        ):
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")

@@ -1,0 +1,98 @@
+"""Whole-image ops: gray conversion, Gaussian blur, pyramid, patches.
+
+Port of `ucoslam_tpu/ops/image.py`. Images are (H, W) float32 tensors. The
+pyramid resizes every level directly from level 0 with the same anti-aliased
+triangle-filter matrices as the reference, as two float32 matmuls (TF32 must
+be off on the card, see `slam/system.py`).
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+
+def gaussian_kernel1d(ksize: int, sigma: float) -> np.ndarray:
+    r = np.arange(ksize) - (ksize - 1) / 2.0
+    k = np.exp(-(r * r) / (2.0 * sigma * sigma))
+    return (k / k.sum()).astype(np.float32)
+
+
+def gaussian_blur(img: torch.Tensor, ksize: int = 7, sigma: float = 2.0) -> torch.Tensor:
+    """Separable Gaussian blur with reflect-101 borders, as shifted-slice sums."""
+    k = gaussian_kernel1d(ksize, sigma)
+    pad = ksize // 2
+    h, w = img.shape
+    p = F.pad(img[None, None], (0, 0, pad, pad), mode="reflect")[0, 0]
+    tmp = sum(float(k[i]) * p[i : i + h, :] for i in range(ksize))
+    p = F.pad(tmp[None, None], (pad, pad, 0, 0), mode="reflect")[0, 0]
+    return sum(float(k[i]) * p[:, i : i + w] for i in range(ksize))
+
+
+def pyramid_shapes(h: int, w: int, n_levels: int, scale_factor: float):
+    """Static per-level (H_l, W_l) sizes, reference-compatible rounding."""
+    shapes = []
+    for lv in range(n_levels):
+        s = 1.0 / (scale_factor**lv)
+        shapes.append((int(round(h * s)), int(round(w * s))))
+    return shapes
+
+
+@functools.lru_cache(maxsize=64)
+def _resize_weight_mat(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) anti-aliased triangle-kernel interpolation matrix (the same
+    matrix as the reference, i.e. jax.image.resize 'linear', antialias).
+    Cached per size pair; callers must not modify it."""
+    scale = out_size / in_size
+    kernel_scale = max(1.0, 1.0 / scale)
+    sample_f = (np.arange(out_size) + 0.5) / scale - 0.5
+    x = np.abs(sample_f[:, None] - np.arange(in_size)[None, :]) / kernel_scale
+    weights = np.maximum(0.0, 1.0 - x)
+    total = weights.sum(axis=1, keepdims=True)
+    weights = np.where(np.abs(total) > 1e-6, weights / total, 0.0)
+    in_span = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
+    return np.where(in_span[:, None], weights, 0.0).astype(np.float32)
+
+
+def resize_matmul(img: torch.Tensor, out_shape: tuple[int, int]) -> torch.Tensor:
+    """Anti-aliased bilinear resize as two float32 matmuls."""
+    h, w = img.shape
+    oh, ow = out_shape
+    if (oh, ow) == (h, w):
+        return img
+    ah = torch.from_numpy(_resize_weight_mat(h, oh)).to(img.device)
+    aw = torch.from_numpy(_resize_weight_mat(w, ow)).to(img.device)
+    return (ah @ img) @ aw.T
+
+
+def build_pyramid(img: torch.Tensor, n_levels: int, scale_factor: float):
+    """(H, W) float32 -> list of per-level images, each resized from level 0."""
+    h, w = img.shape
+    shapes = pyramid_shapes(h, w, n_levels, scale_factor)
+    return [img] + [resize_matmul(img, shapes[lv]) for lv in range(1, n_levels)]
+
+
+def extract_patches(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Tensor:
+    """(N, 2r+1, 2r+1) square patches centred at rounded xy, clamped so the
+    patch stays inside the image (a plain 2-D gather)."""
+    P = 2 * radius + 1
+    h, w = img.shape
+    y0 = (torch.round(xy[:, 1]).long() - radius).clamp(0, h - P)
+    x0 = (torch.round(xy[:, 0]).long() - radius).clamp(0, w - P)
+    offs = torch.arange(P, device=img.device)
+    gy = y0[:, None, None] + offs[None, :, None]
+    gx = x0[:, None, None] + offs[None, None, :]
+    return img[gy, gx]
+
+
+def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
+    """BGR (H, W, 3) or gray (H, W) -> grayscale float32 (H, W), OpenCV
+    BGR2GRAY weights."""
+    img = img.to(torch.float32)
+    if img.ndim == 2:
+        return img
+    b, g, r = img[..., 0], img[..., 1], img[..., 2]
+    return 0.114 * b + 0.587 * g + 0.299 * r

@@ -8,18 +8,27 @@ Phases (each prints one line; any failure raises and exits non-zero):
 1. environment: the card's name and power limit, TF32 off, both CUDA
    kernels built from `ucoslam_tpu_torch/csrc` with nvcc;
 2. kernel B1 (projection matching) against its plain PyTorch version on the
-   card at P=16384 map points x N=2048 keypoints: idx, best and second must
-   be exactly equal;
+   card at P=16384 map points x N=2048 keypoints, with 90% of the rows live
+   and at the slice's live share (SLICE_LIVE_ROWS): idx, best and second
+   must be exactly equal;
 3. kernel B2 (motion-only LM) against its plain version at B=2112 rows, mono
-   and with depth: pose max-abs difference < 1e-4 and the same inlier mask;
+   and with depth, at both (iters, rounds) of the slice's track, (10, 4) and
+   (10, 2): pose max-abs difference < 1e-4 and the same inlier mask;
 4. the slice: `UcoSlam(device="cuda").readFromFile(mono_map.slm)` ->
    `setMode(LOCALIZATION)` -> one frame at a time over the 60-frame sequence
    in reverse, held against the JAX package's run of the same sweep
    (`data/torch_port/mono_reverse_jax.json`): at least as many frames
    tracked, ATE <= 1.2 x JAX + 0.002, every camera centre within 2% of the
-   scene's depth extent of JAX's, and both kernels launched twice per track
-   attempt.
+   scene's depth extent of JAX's, both kernels launched twice per track
+   attempt, and B1's live rows on the first attempt within 10% of
+   SLICE_LIVE_ROWS.
 
+The kernels' times are medians of CUDA-event timings of single launches.
+Each kernel's bound is the larger of its bytes (inputs read once, outputs
+written once) over 3.35 TB/s and its operations on these inputs over the
+card's peak rate for them: B2's float32 operations over 67 TFLOP/s, B1's
+instructions (none a fused multiply-add) over the issue rate of 132 SMs x
+128 lanes x 1.98 GHz and its popcounts over 16 a cycle an SM.
 The last lines are the kernels' JSON record, then `{"ok": true, ...}`.
 It exits non-zero without a result when no CUDA device is present, and when
 run outside the repository checkout.
@@ -37,6 +46,28 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 MAP_PATH = os.path.join(HERE, "data", "torch_port", "mono_map.slm")
 REF_PATH = os.path.join(HERE, "data", "torch_port", "mono_reverse_jax.json")
 
+#: B1's live rows (visible map points) on the slice's first track attempt,
+#: of the 16384-slot arena, and the slots they lie in ([0, SLICE_LIVE_SPAN));
+#: counted once by the port on that frame, and checked again by phase 4
+SLICE_LIVE_ROWS, SLICE_LIVE_SPAN = 3154, 3556
+
+#: peak rates of one H100 SXM (NVIDIA's data sheet): HBM bytes/s, float32 FLOP/s
+#: (a fused multiply-add counted as 2)
+HBM_BYTES_PER_S, FP32_OPS_PER_S = 3.35e12, 67e12
+#: instructions a second of one H100 SXM at its 1.98 GHz boost clock: any
+#: (132 SMs x 128 lanes a cycle), and 32-bit popcounts (16 a cycle an SM)
+ISSUE_PER_S, POPC_PER_S = 132 * 128 * 1.98e9, 132 * 16 * 1.98e9
+#: B1 instructions: the gate of a live pair (2 subtracts, 2 multiplies, an add
+#: and a compare for the radius, a subtract and a compare for the octave),
+#: and for a pair inside the gate the distance (8 XOR, 7 adds) and the best-2
+#: update (2 compares), and its 8 popcounts
+B1_GATE_OPS, B1_PASS_OPS, B1_PASS_POPC = 8, 17, 8
+#: B2 floating-point operations per row and iteration: projection 25,
+#: residual and chi2 6, Huber weight 5, Jacobian 18, the 21 + 6 weighted
+#: normal-equation sums 135, the candidate's capped cost 33; with depth the
+#: stereo row adds 81
+B2_ROW_OPS, B2_ROW_OPS_DEPTH = 222, 303
+
 
 class SmokeFailure(RuntimeError):
     pass
@@ -48,14 +79,20 @@ def check(cond: bool, msg: str) -> None:
 
 
 def median_ms(fn, reps: int) -> float:
-    """Median device time of fn() over `reps` runs, from CUDA events."""
+    """Median device time of fn() over `reps` runs, from CUDA events. A spin
+    kernel (~0.5 ms) holds the stream before each run, so that the run's
+    launches queue behind it and the events time the device, not the host's
+    launch path (a function that launches slower than the device runs is
+    still timed at its launch rate)."""
     import torch
 
     fn()  # warm-up
+    torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
         a.record()
         fn()
         b.record()
@@ -97,6 +134,48 @@ def b1_inputs(device, P=16384, N=2048, seed=0):
         t(desc_a.view(np.int32)), t(uv_a), t(oct_a), t(valid_a),
         t(desc_b.view(np.int32)), t(uv_b), t(oct_b), t(valid_b), t(radius2),
     )
+
+
+def b1_slice_inputs(device, seed=1):
+    """b1_inputs with the slice's live rows: SLICE_LIVE_ROWS of the 16384,
+    all within the first SLICE_LIVE_SPAN slots, as in the map arena."""
+    import numpy as np
+    import torch
+
+    args = list(b1_inputs(device, seed=seed))
+    live = np.zeros(args[0].shape[0], bool)
+    live[np.random.default_rng(seed).choice(SLICE_LIVE_SPAN, SLICE_LIVE_ROWS, replace=False)] = True
+    args[3] = torch.from_numpy(live).to(device)
+    return tuple(args)
+
+
+def b1_bound(args) -> tuple[float, str, int]:
+    """-> (bound ms, what bounds it, pairs inside the gate) for B1 on args."""
+    desc_a, uv_a, oct_a, valid_a, desc_b, uv_b, oct_b, valid_b, radius2 = args
+    du = uv_a[:, None, 0] - uv_b[None, :, 0]
+    dv = uv_a[:, None, 1] - uv_b[None, :, 1]
+    gate = ((du * du + dv * dv < radius2[None, :]) & ((oct_a[:, None] - oct_b[None, :]).abs() <= 1)
+            & valid_a[:, None] & valid_b[None, :])
+    passing = int(gate.sum())
+    del du, dv, gate
+    live_pairs = int(valid_a.sum()) * int(valid_b.sum())
+    t_ops = (B1_GATE_OPS * live_pairs + B1_PASS_OPS * passing) / ISSUE_PER_S + B1_PASS_POPC * passing / POPC_PER_S
+    nbytes = sum(t.numel() * t.element_size() for t in args) + 3 * 4 * desc_a.shape[0]
+    return bound_of(nbytes, t_ops) + (passing,)
+
+
+def b2_bound(B: int, iters: int, rounds: int, n_valid: int, n_inliers: int, depth: bool):
+    """-> (bound ms, what bounds it) for B2: the valid rows in the first
+    round, the final inliers in the later ones."""
+    nbytes = 64 + B * (12 + 8 + 4 + 1 + (4 if depth else 0)) + 64 + B
+    rows = iters * (n_valid + (rounds - 1) * n_inliers)
+    return bound_of(nbytes, rows * (B2_ROW_OPS_DEPTH if depth else B2_ROW_OPS) / FP32_OPS_PER_S)
+
+
+def bound_of(nbytes: int, t_ops: float) -> tuple[float, str]:
+    """-> (ms, basis): the larger of the bytes' time and the operations' t_ops (s)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def b2_inputs(device, B=2112, seed=0, with_depth=False):
@@ -149,6 +228,7 @@ def phase_environment():
 
     disable_tf32()
     t0 = time.perf_counter()
+    cuda.build("match_kernel", "lm_kernel")  # one nvcc each, in parallel
     match_kernel._library()
     lm_kernel._library()
     build_s = time.perf_counter() - t0
@@ -162,22 +242,30 @@ def phase_b1():
     import torch
     from ucoslam_tpu_torch.ops.cuda import match_kernel
 
-    args = b1_inputs("cuda")
-    got = match_kernel.project_match(*args)
-    want = match_kernel.project_match_plain(*args)
-    torch.cuda.synchronize()
-    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
-    idx, best, second = (a.cpu() for a in want)
-    ties = int(((best == second) & (idx >= 0)).sum())
-    masked = int((idx < 0).sum())
-    check(all(torch.equal(g, w) for g, w in zip(got, want)),
-          f"B1 differs from its plain version (max abs err {err})")
-    ms = median_ms(lambda: match_kernel.project_match(*args), 20)
-    plain_ms = median_ms(lambda: match_kernel.project_match_plain(*args), 5)
-    P, N = args[0].shape[0], args[4].shape[0]
-    print(f"[2 B1] P={P} N={N} exact idx/best/second: ties={ties} masked_rows={masked} "
-          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    rec = dict(max_abs_err=0)
+    for case, args in (("90% live", b1_inputs("cuda")), ("slice share", b1_slice_inputs("cuda"))):
+        got = match_kernel.project_match(*args)
+        want = match_kernel.project_match_plain(*args)
+        torch.cuda.synchronize()
+        err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+        idx, best, second = (a.cpu() for a in want)
+        ties = int(((best == second) & (idx >= 0)).sum())
+        masked = int((idx < 0).sum())
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              f"B1 differs from its plain version at {case} (max abs err {err})")
+        ms = median_ms(lambda: match_kernel.project_match(*args), 50)
+        plain_ms = median_ms(lambda: match_kernel.project_match_plain(*args), 5)
+        bound_ms, bound_by, passing = b1_bound(args)
+        P, N, live = args[0].shape[0], args[4].shape[0], int(args[3].sum())
+        print(f"[2 B1] P={P} N={N} {case}: live_rows={live} exact idx/best/second: ties={ties} "
+              f"masked_rows={masked} gated_pairs={passing} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.6f} ({bound_by})")
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if case == "slice share":  # the main path's share: its timing is the one recorded
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        else:
+            rec.update(ms_90pct_live=ms, bound_ms_90pct_live=bound_ms)
+    return rec
 
 
 def phase_b2():
@@ -190,24 +278,29 @@ def phase_b2():
         extra = dict(bf=50.0, has_depth=True) if with_depth else {}
         call = [kw.pop(k) for k in ("pose_init", "pts3d", "uv", "sigma2", "valid")]
         args = (*call, 500.0, 500.0, 320.0, 240.0)
+        for iters, rounds in ((10, 4), (10, 2)):  # the slice's two refines
 
-        def kernel():
-            return lm_kernel.motion_only_lm_fused(*args, **kw, **extra)
+            def kernel():
+                return lm_kernel.motion_only_lm_fused(*args, **kw, **extra, iters=iters, rounds=rounds)
 
-        def plain():
-            return lm_kernel.motion_only_lm_plain(*args, **kw, **extra)
+            def plain():
+                return lm_kernel.motion_only_lm_plain(*args, **kw, **extra, iters=iters, rounds=rounds)
 
-        (pose_k, mask_k), (pose_p, mask_p) = kernel(), plain()
-        torch.cuda.synchronize()
-        err = float((pose_k - pose_p).abs().max())
-        check(err < 1e-4, f"B2 pose differs by {err} (depth={with_depth})")
-        check(torch.equal(mask_k, mask_p), f"B2 inlier mask differs (depth={with_depth})")
-        ms, plain_ms = median_ms(kernel, 20), median_ms(plain, 5)
-        print(f"[3 B2] B={args[1].shape[0]} depth={with_depth} pose_max_abs_err={err:.3e} "
-              f"inliers={int(mask_k.sum())} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if not with_depth:  # the slice runs mono: its timing is the one recorded
-            rec.update(ms=ms, plain_ms=plain_ms)
+            (pose_k, mask_k), (pose_p, mask_p) = kernel(), plain()
+            torch.cuda.synchronize()
+            case = f"{'depth' if with_depth else 'mono'} {iters}x{rounds}"
+            err = float((pose_k - pose_p).abs().max())
+            check(err < 1e-4, f"B2 pose differs by {err} ({case})")
+            check(torch.equal(mask_k, mask_p), f"B2 inlier mask differs ({case})")
+            ms, plain_ms = median_ms(kernel, 50), median_ms(plain, 5)
+            B, n_valid, n_inl = args[1].shape[0], int(call[4].sum()), int(mask_k.sum())
+            bound_ms, bound_by = b2_bound(B, iters, rounds, n_valid, n_inl, with_depth)
+            print(f"[3 B2] B={B} {case}: pose_max_abs_err={err:.3e} valid={n_valid} inliers={n_inl} "
+                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by})")
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            rec.setdefault("ms_by_case", {})[case] = ms
+            if case == "mono 10x4":  # the slice's first refine: the timing recorded
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
     return rec
 
 
@@ -244,6 +337,7 @@ def phase_slice():
     from ucoslam_tpu_torch.geometry.camera import CameraParams
     from ucoslam_tpu_torch.geometry.horn import ate_rmse
     from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
+    from ucoslam_tpu_torch.matching import projection
     from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
 
     with open(REF_PATH) as f:
@@ -257,6 +351,16 @@ def phase_slice():
     slam = UcoSlam(device="cuda")
     slam.readFromFile(MAP_PATH, cam)
     slam.setMode(Mode.LOCALIZATION)
+    # B1's live-row mask on the first attempt, counted after the sweep (no
+    # launch of its own inside the timed frames)
+    first_valid, inner_match = [], projection.project_match
+
+    def first_match(*args):
+        first_valid.append(args[3])
+        projection.project_match = inner_match
+        return inner_match(*args)
+
+    projection.project_match = first_match
     # process() is extract, then track: time each where process() calls it
     t_extract = timed(slam._extractor, "process")
     t_track = timed(slam._system, "process_frame")
@@ -272,6 +376,8 @@ def phase_slice():
             poses[i] = pose
     launches = {"B1": match_kernel.launches, "B2": lm_kernel.launches}
     attempts = slam._system.tracker.n_attempts
+    projection.project_match = inner_match
+    first_live = int(first_valid[0].sum())
 
     ref_poses = {int(k): np.asarray(v) for k, v in ref["reverse_poses"].items()}
     idx = sorted(poses)
@@ -287,12 +393,14 @@ def phase_slice():
           f"ate={ate:.6f} (jax {ref['pass2_ate']:.6f}) max_centre_dev={dev:.6f} (tol {tol:.6f}) "
           f"process_ms_median={np.median(t_process):.3f} "
           f"extract_ms_median={np.median(t_extract):.3f} track_ms_median={np.median(t_track):.3f} "
-          f"attempts={attempts} launches={launches}")
+          f"attempts={attempts} launches={launches} first_b1_live_rows={first_live}")
     check(len(idx) >= ref["pass2_tracked"], "tracked fewer frames than the JAX package")
     check(ate <= 1.2 * ref["pass2_ate"] + 0.002, f"ATE {ate} over the limit")
     check(dev <= tol, f"camera centre {dev} from the JAX pose (tol {tol})")
     for k, n in launches.items():
         check(n > 0 and n == 2 * attempts, f"{k} launched {n} times for {attempts} track attempts")
+    check(abs(first_live - SLICE_LIVE_ROWS) <= 0.1 * SLICE_LIVE_ROWS,
+          f"B1 had {first_live} live rows on the first attempt; SLICE_LIVE_ROWS is {SLICE_LIVE_ROWS}")
     return launches
 
 
@@ -320,11 +428,14 @@ def main() -> int:
     b2 = phase_b2()
     launches = phase_slice()
     check("jax" not in sys.modules, "jax was imported")
+    check("ucoslam_tpu" not in sys.modules, "the JAX package ucoslam_tpu was imported")
     kernels = [
         dict(name="project_match", route="cuda", source="ucoslam_tpu_torch/csrc/match_kernel.cu",
-             replaces="ucoslam_tpu/ops/pallas/match_kernel.py:105", launches=launches["B1"], **b1),
+             replaces="ucoslam_tpu/ops/pallas/match_kernel.py:105", launches=launches["B1"],
+             library_ms=None, **b1),
         dict(name="motion_only_lm", route="cuda", source="ucoslam_tpu_torch/csrc/lm_kernel.cu",
-             replaces="ucoslam_tpu/ops/pallas/lm_kernel.py:246", launches=launches["B2"], **b2),
+             replaces="ucoslam_tpu/ops/pallas/lm_kernel.py:246", launches=launches["B2"],
+             library_ms=None, **b2),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,6 +22,7 @@ from ucoslam_tpu.geometry.camera import CameraParams as RefCamera
 from ucoslam_tpu.io.synthetic import SyntheticSequence as RefSequence
 from ucoslam_tpu.ops import fast as ref_fast
 from ucoslam_tpu.ops import image as ref_image
+from ucoslam_tpu_torch.config import Params as PortParams
 from ucoslam_tpu_torch.features.frame_extractor import FrameExtractor
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
@@ -104,7 +105,8 @@ def _agreement(port_frame, ref_frame):
 def test_frame_extractor_agreement(seqs):
     params = Params().replace(detectMarkers=False, maxKeyPointsPerFrame=512, nOctaveLevels=4)
     ref = RefExtractor(params, RefCamera.create(500.0, 500.0, 320.0, 240.0))
-    port = FrameExtractor(params, CameraParams.create(500.0, 500.0, 320.0, 240.0), device="cpu")
+    port_params = PortParams.from_dict(params.to_dict())
+    port = FrameExtractor(port_params, CameraParams.create(500.0, 500.0, 320.0, 240.0), device="cpu")
     for i in FRAMES:
         img = seqs[1].render(i)
         f_port, f_ref = port.process(img, i), ref.process(img, i)

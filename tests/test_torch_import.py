@@ -1,6 +1,8 @@
-"""The PyTorch port imports without JAX, and its kernels build lazily."""
+"""The PyTorch port imports neither JAX nor the JAX package, and its kernels
+build lazily."""
 
 import os
+import re
 import subprocess
 import sys
 
@@ -10,13 +12,18 @@ torch.set_num_threads(2)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# an import of the JAX package itself (not of ucoslam_tpu_torch)
+IMPORTS_JAX_PACKAGE = re.compile(r"^\s*(import ucoslam_tpu\b|from ucoslam_tpu(\.| import))", re.M)
+
 
 def test_port_import_leaves_jax_out():
     code = (
         "import sys\n"
         "import ucoslam_tpu_torch, ucoslam_tpu_torch.api, ucoslam_tpu_torch.io.synthetic\n"
         "import ucoslam_tpu_torch.ops.cuda.match_kernel, ucoslam_tpu_torch.ops.cuda.lm_kernel\n"
+        "import chip_smoke\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
+        "assert 'ucoslam_tpu' not in sys.modules, 'ucoslam_tpu imported'\n"
         "from ucoslam_tpu_torch.ops import cuda\n"
         "assert cuda.load_library.cache_info().currsize == 0, 'a kernel was built at import'\n"
         "print('ok')\n"
@@ -32,9 +39,20 @@ def test_port_import_leaves_jax_out():
 
 def test_port_sources_never_import_jax():
     pkg = os.path.join(REPO, "ucoslam_tpu_torch")
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(pkg):
-        for name in files:
-            if name.endswith(".py"):
-                with open(os.path.join(root, name)) as f:
-                    src = f.read()
-                assert "import jax" not in src and "from jax" not in src, name
+        paths += [os.path.join(root, name) for name in files if name.endswith(".py")]
+    for path in paths:
+        with open(path) as f:
+            src = f.read()
+        assert "import jax" not in src and "from jax" not in src, path
+        assert not IMPORTS_JAX_PACKAGE.search(src), path
+
+
+def test_jax_package_import_pattern():
+    for line in ("import ucoslam_tpu", "from ucoslam_tpu.config import Params",
+                 "from ucoslam_tpu import config", "    import ucoslam_tpu.ops"):
+        assert IMPORTS_JAX_PACKAGE.search(line), line
+    for line in ("import ucoslam_tpu_torch", "from ucoslam_tpu_torch.config import Params",
+                 "from ucoslam_tpu_torch import Mode", "# see ucoslam_tpu.config"):
+        assert not IMPORTS_JAX_PACKAGE.search(line), line

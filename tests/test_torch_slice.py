@@ -11,10 +11,11 @@ import pytest
 import torch
 
 from tools.port.make_reference_map import camera_center, run
-from ucoslam_tpu.config import Mode, Params
+from ucoslam_tpu.config import Params
 from ucoslam_tpu.geometry.camera import CameraParams as RefCamera
 from ucoslam_tpu.io.synthetic import SyntheticSequence as RefSequence
 from ucoslam_tpu_torch.api import UcoSlam
+from ucoslam_tpu_torch.config import Mode
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.geometry.horn import ate_rmse
 from ucoslam_tpu_torch.io.synthetic import SyntheticSequence

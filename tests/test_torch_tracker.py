@@ -22,6 +22,7 @@ from ucoslam_tpu.mapping.frame import strip_markers
 from ucoslam_tpu.mapping.map import Map as RefMap
 from ucoslam_tpu.mapping.map import empty_map_state
 from ucoslam_tpu.slam import tracker as ref_tracker
+from ucoslam_tpu_torch.config import Params as PortParams
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import frame_from_numpy
 from ucoslam_tpu_torch.mapping.map import Map, map_state_from_numpy
@@ -116,8 +117,9 @@ def test_tracker_track_matches_reference(scene):
     ref_map.state = st
     want = ref_tracker.Tracker(PARAMS, cam).track(ref_map, frame, jnp.asarray(prior))
     state, fr = _port_inputs(st, frame)
-    port_map = Map(PARAMS, state)
-    trk = tracker.Tracker(PARAMS, CameraParams.create(500.0, 500.0, 320.0, 240.0), "cpu")
+    port_params = PortParams.from_dict(PARAMS.to_dict())
+    port_map = Map(port_params, state)
+    trk = tracker.Tracker(port_params, CameraParams.create(500.0, 500.0, 320.0, 240.0), "cpu")
     got = trk.track(port_map, fr, torch.from_numpy(prior))
     assert trk.n_attempts == 1
     assert got.ok == want.ok and got.ok

@@ -4,7 +4,8 @@ Loads `data/torch_port/mono_map.slm`, localizes the reverse sweep of the
 60-frame `mono` sequence as chip_smoke.py does, and traces FRAMES frames
 after WARMUP frames with torch.profiler (CPU + CUDA). Prints, per step
 (extract, track): host wall ms per frame and device busy ms per frame, the
-device's idle share, and the top operators by device time; writes the
+device's idle share, and the top operators by device time (per frame and
+per call, so a kernel's time per launch); writes the
 summary JSON and a chrome trace under `--out-dir`.
 
     python3 tools/port/profile_slice.py --out-dir build/profile
@@ -110,8 +111,13 @@ def main(argv=None) -> None:
     device_ops = [k for k in table if k.device_type == torch.autograd.DeviceType.CUDA]
     top = sorted(device_ops, key=lambda k: k.self_device_time_total, reverse=True)[:15]
     summary["device_events_per_frame"] = sum(k.count for k in device_ops) / FRAMES
+    summary["port_kernels"] = [  # the port's own CUDA kernels, B1 and B2
+        {"name": k.key, "calls": k.count, "device_ms_per_call": k.self_device_time_total / 1e3 / max(k.count, 1)}
+        for k in device_ops if "project_match_kernel" in k.key or "motion_only_lm_kernel" in k.key
+    ]
     summary["top_device_ops"] = [
-        {"name": k.key, "calls": k.count, "device_ms_per_frame": k.self_device_time_total / 1e3 / FRAMES}
+        {"name": k.key, "calls": k.count, "device_ms_per_frame": k.self_device_time_total / 1e3 / FRAMES,
+         "device_ms_per_call": k.self_device_time_total / 1e3 / max(k.count, 1)}
         for k in top
     ]
     top_cpu = sorted(table, key=lambda k: k.self_cpu_time_total, reverse=True)[:15]

@@ -1,8 +1,9 @@
 """ucoslam_tpu_torch — the PyTorch/CUDA port of ucoslam_tpu for NVIDIA Hopper.
 
 A second package beside the JAX reference `ucoslam_tpu`, with the same
-layout, the same `Params` and the same checkpoints. Plain tensor code is
-PyTorch; the two Pallas TPU kernels of the reference are hand-written CUDA
+layout, a copy of its `Params` (`config.py`) and the same checkpoints.
+Plain tensor code is PyTorch; the two Pallas TPU kernels of the reference
+are hand-written CUDA
 kernels for `sm_90a` (`csrc/`), built with `nvcc` at their first launch on a
 CUDA tensor (`ops/cuda`). On a CPU tensor every kernel wrapper runs its plain
 PyTorch version instead, which is what the CPU tests exercise.
@@ -12,10 +13,10 @@ Ported so far: monocular LOCALIZATION against a saved map
 Mapping, relocalization, markers and stereo/RGB-D input are not ported yet
 (ROADMAP.md, Queue 1).
 
-This package never imports jax. `Params`, `Mode` and `TrackingState` come from
-`ucoslam_tpu.config`, which is pure Python.
+This package imports neither jax nor anything of `ucoslam_tpu`: `Params`,
+`Mode` and `TrackingState` are its own (`ucoslam_tpu_torch.config`).
 """
 
 __version__ = "0.1.0"
 
-from ucoslam_tpu.config import Mode, Params, TrackingState  # noqa: F401
+from ucoslam_tpu_torch.config import Mode, Params, TrackingState  # noqa: F401

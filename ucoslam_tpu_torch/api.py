@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from ucoslam_tpu.config import Mode, TrackingState
+from ucoslam_tpu_torch.config import Mode, TrackingState
 from ucoslam_tpu_torch.features.frame_extractor import FrameExtractor
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.io.serialize import load_map, load_map_extra_arrays, load_map_meta

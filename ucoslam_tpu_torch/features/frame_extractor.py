@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ucoslam_tpu.config import DescriptorType, Params
+from ucoslam_tpu_torch.config import DescriptorType, Params
 from ucoslam_tpu_torch.features.orb import ORBExtractor
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import Frame, empty_frame

@@ -14,13 +14,13 @@ import zipfile
 
 import numpy as np
 
-from ucoslam_tpu.config import Params
+from ucoslam_tpu_torch.config import Params
 from ucoslam_tpu_torch.mapping.map import Map, map_state_from_numpy
 
 MAGIC = 225237123  # the reference map files' magic number
 
 
-def load_map(path: str, device="cpu") -> Map:
+def load_map(path: str, device) -> Map:
     with zipfile.ZipFile(path) as z:
         meta = json.loads(z.read("meta.json"))
         if meta.get("magic") != MAGIC:

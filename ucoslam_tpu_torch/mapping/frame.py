@@ -38,7 +38,7 @@ class Frame:
         return dataclasses.replace(self, **kw)
 
 
-def empty_frame(n: int, device="cpu") -> Frame:
+def empty_frame(n: int, device) -> Frame:
     f32 = dict(dtype=torch.float32, device=device)
     i32 = dict(dtype=torch.int32, device=device)
     return Frame(

@@ -15,7 +15,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ucoslam_tpu.config import Params
+from ucoslam_tpu_torch.config import Params
 from ucoslam_tpu_torch.mapping.arena import Arena
 from ucoslam_tpu_torch.mapping.frame import tensor_from_numpy
 

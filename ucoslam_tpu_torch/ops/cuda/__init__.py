@@ -5,7 +5,8 @@ library with a plain C interface, loaded with `ctypes`. The library lands in
 `build/ucoslam_tpu_torch/` at the repository root, named after a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one is
 reused. Nothing is built when the package is imported: the first launch on a
-CUDA tensor builds, and a missing `nvcc` or a failed build raises.
+CUDA tensor builds, or `build(...)` builds several sources at once, one nvcc
+each; a missing `nvcc` or a failed build raises.
 """
 
 from __future__ import annotations
@@ -39,25 +40,41 @@ def _nvcc() -> str:
     return path
 
 
+def _library_path(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build(*names: str) -> None:
+    """Build the libraries of `csrc/<name>.cu` that are not built yet, with
+    one nvcc process for each, all started together."""
+    jobs = {}
+    for name in names:
+        lib = _library_path(name)
+        if lib.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        src = CSRC_DIR / f"{name}.cu"
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        )
+        jobs[name] = (proc, tmp, lib, src, time.perf_counter())
+    for name, (proc, tmp, lib, src, t0) in jobs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {src}:\n{err}")
+        os.replace(tmp, lib)
+        build_seconds[name] = time.perf_counter() - t0
+
+
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
     """Build (if needed) and load `csrc/<name>.cu`; cached per process."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    lib = BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
-    if not lib.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
-        os.replace(tmp, lib)
-        build_seconds[name] = time.perf_counter() - t0
-    return ctypes.CDLL(str(lib))
+    build(name)
+    return ctypes.CDLL(str(_library_path(name)))
 
 
 def check_launch(err: int, kernel: str) -> None:

@@ -14,7 +14,7 @@ import ctypes
 import numpy as np
 import torch
 
-from ucoslam_tpu.config import CHI2_2D, CHI2_3D
+from ucoslam_tpu_torch.config import CHI2_2D, CHI2_3D
 from ucoslam_tpu_torch.geometry.se3 import _hat
 from ucoslam_tpu_torch.ops import cuda
 from ucoslam_tpu_torch.optim.robust import huber_weight
@@ -155,6 +155,9 @@ def motion_only_lm_fused(
         tensors["depth"] = (depth, torch.float32, (B,))
     cuda.check_cuda_args(dev, **tensors)
     lib = _library()
+    max_rows = lib.motion_only_lm_max_rows()
+    if B > max_rows:
+        raise ValueError(f"motion_only_lm holds at most {max_rows} rows on the SMs, got B={B}")
     pose = torch.empty(4, 4, dtype=torch.float32, device=dev)
     mask = torch.empty(B, dtype=torch.uint8, device=dev)
     err = lib.motion_only_lm_launch(
@@ -171,8 +174,9 @@ def motion_only_lm_fused(
 
 def _library() -> ctypes.CDLL:
     lib = cuda.load_library("lm_kernel")
-    fn = lib.motion_only_lm_launch
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fn.argtypes = [p, p, p, p, p, p, i, f, f, f, f, f, f, i, i, i, p, p, p]
-    fn.restype = ctypes.c_int
+    lib.motion_only_lm_launch.argtypes = [p, p, p, p, p, p, i, f, f, f, f, f, f, i, i, i, p, p, p]
+    lib.motion_only_lm_launch.restype = ctypes.c_int
+    lib.motion_only_lm_max_rows.argtypes = []
+    lib.motion_only_lm_max_rows.restype = ctypes.c_int
     return lib

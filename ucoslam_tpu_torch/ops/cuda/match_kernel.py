@@ -63,12 +63,11 @@ def project_match(desc_a, uv_a, oct_a, valid_a, desc_b, uv_b, oct_b, valid_b, ra
     idx, best, second = (torch.empty(P, dtype=torch.int32, device=dev) for _ in range(3))
     if P == 0:  # nothing to launch, and nothing to count
         return idx, best, second
-    lib = _library()
-    err = lib.project_match_launch(
+    err = _library().project_match_launch(
         desc_a.data_ptr(), uv_a.data_ptr(), oct_a.data_ptr(), valid_a.data_ptr(), P,
         desc_b.data_ptr(), uv_b.data_ptr(), oct_b.data_ptr(), valid_b.data_ptr(),
-        radius2.data_ptr(), N,
-        idx.data_ptr(), best.data_ptr(), second.data_ptr(), cuda.stream_handle(dev),
+        radius2.data_ptr(), N, idx.data_ptr(), best.data_ptr(), second.data_ptr(),
+        cuda.stream_handle(dev),
     )
     cuda.check_launch(err, "project_match")
     launches += 1
@@ -77,8 +76,7 @@ def project_match(desc_a, uv_a, oct_a, valid_a, desc_b, uv_b, oct_b, valid_b, ra
 
 def _library() -> ctypes.CDLL:
     lib = cuda.load_library("match_kernel")
-    fn = lib.project_match_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, p, p, p, p, p, i, p, p, p, p]
-    fn.restype = ctypes.c_int
+    lib.project_match_launch.argtypes = [p, p, p, p, i, p, p, p, p, p, i, p, p, p, p]
+    lib.project_match_launch.restype = ctypes.c_int
     return lib

@@ -13,7 +13,7 @@ import hashlib
 import numpy as np
 import torch
 
-from ucoslam_tpu.config import Mode, Params, TrackingState
+from ucoslam_tpu_torch.config import Mode, Params, TrackingState
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import Frame
 from ucoslam_tpu_torch.mapping.map import Map

@@ -14,7 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ucoslam_tpu.config import Params
+from ucoslam_tpu_torch.config import Params
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import Frame
 from ucoslam_tpu_torch.mapping.map import Map, MapState

@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Quickest proof that the PyTorch/CUDA port runs on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--frames 60|150]
 
-Phases (each prints one line; any failure raises and exits non-zero):
+Phases (each prints one line or more; any failure raises and exits non-zero):
 
 1. environment: the card's name and power limit, TF32 off, both CUDA
    kernels built from `ucoslam_tpu_torch/csrc` with nvcc;
@@ -14,21 +14,33 @@ Phases (each prints one line; any failure raises and exits non-zero):
 3. kernel B2 (motion-only LM) against its plain version at B=2112 rows, mono
    and with depth, at both (iters, rounds) of the slice's track, (10, 4) and
    (10, 2): pose max-abs difference < 1e-4 and the same inlier mask;
-4. the slice: `UcoSlam(device="cuda").readFromFile(mono_map.slm)` ->
-   `setMode(LOCALIZATION)` -> one frame at a time over the 60-frame sequence
-   in reverse, held against the JAX package's run of the same sweep
+4. the LOCALIZATION slice: `UcoSlam(device="cuda").readFromFile(mono_map.slm)`
+   -> `setMode(LOCALIZATION)` -> one frame at a time over the 60-frame
+   sequence in reverse, held against the JAX package's run of the same sweep
    (`data/torch_port/mono_reverse_jax.json`): at least as many frames
    tracked, ATE <= 1.2 x JAX + 0.002, every camera centre within 2% of the
    scene's depth extent of JAX's, both kernels launched twice per track
    attempt, and B1's live rows on the first attempt within 10% of
-   SLICE_LIVE_ROWS.
+   SLICE_LIVE_ROWS;
+5. the SLAM slice: `UcoSlam(device="cuda").setParams(None, params, cam)`
+   with the parameters the JAX package mapped with -> `process` over the
+   rendered sequence (60 frames; `--frames 150` takes the 150-frame
+   reference) -> `saveToFile`; held to the JAX package's pass 1 (tracked >=
+   JAX - 2, ATE <= 1.2 x JAX + 0.002) and a consistent map. A second pass
+   gives the same signature. A fresh `UcoSlam(device="cuda")` reads the
+   checkpoint, with the same signature, and localizes the sequence in
+   reverse (tracked >= JAX's pass 2 - 2, ATE <= 1.2 x JAX + 0.002). B1 is
+   launched twice per track attempt and once per keyframe insertion (the
+   duplicate fusion), B2 twice per track attempt; B1 at the last fusion's
+   inputs is exactly equal to its plain version.
 
 The kernels' times are medians of CUDA-event timings of single launches.
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations on these inputs over the
 card's peak rate for them: B2's float32 operations over 67 TFLOP/s, B1's
 instructions (none a fused multiply-add) over the issue rate of 132 SMs x
-128 lanes x 1.98 GHz and its popcounts over 16 a cycle an SM.
+128 lanes x 1.98 GHz and its popcounts over 16 a cycle an SM. Host times
+(`process`, `new_keyframe` and its steps) end in a device synchronize.
 The last lines are the kernels' JSON record, then `{"ok": true, ...}`.
 It exits non-zero without a result when no CUDA device is present, and when
 run outside the repository checkout.
@@ -40,11 +52,21 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-MAP_PATH = os.path.join(HERE, "data", "torch_port", "mono_map.slm")
-REF_PATH = os.path.join(HERE, "data", "torch_port", "mono_reverse_jax.json")
+
+
+def reference_paths(frames: int) -> tuple[str, str]:
+    """-> (checkpoint, summary) of the JAX package's run over `frames`
+    frames of the `mono` scenario (tools/port/make_reference_map.py)."""
+    name = "mono" if frames == 60 else f"mono{frames}"
+    d = os.path.join(HERE, "data", "torch_port")
+    return os.path.join(d, f"{name}_map.slm"), os.path.join(d, f"{name}_reverse_jax.json")
+
+
+MAP_PATH, REF_PATH = reference_paths(60)
 
 #: B1's live rows (visible map points) on the slice's first track attempt,
 #: of the 16384-slot arena, and the slots they lie in ([0, SLICE_LIVE_SPAN));
@@ -329,24 +351,37 @@ def camera_center(pose):
     return -pose[:3, :3].T @ pose[:3, 3]
 
 
-def phase_slice():
-    import numpy as np
-    import torch
-    from ucoslam_tpu_torch import Mode
-    from ucoslam_tpu_torch.api import UcoSlam
+def load_scene(ref_path: str):
+    """-> (the JAX package's summary, camera, sequence, rendered images)."""
     from ucoslam_tpu_torch.geometry.camera import CameraParams
-    from ucoslam_tpu_torch.geometry.horn import ate_rmse
     from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
-    from ucoslam_tpu_torch.matching import projection
-    from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
 
-    with open(REF_PATH) as f:
+    with open(ref_path) as f:
         ref = json.load(f)
     c = ref["camera"]
     cam = CameraParams.create(c["fx"], c["fy"], c["cx"], c["cy"], width=c["width"], height=c["height"])
     seq = SyntheticSequence(cam=cam, **ref["sequence"])
+    return ref, cam, seq, [seq.render(i) for i in range(seq.n_frames)]
+
+
+def ate_of(poses: dict, seq) -> float:
+    import numpy as np
+    from ucoslam_tpu_torch.geometry.horn import ate_rmse
+
+    idx = sorted(poses)
+    return ate_rmse(np.stack([camera_center(poses[i]) for i in idx]), seq.gt_positions()[idx], with_scale=True)
+
+
+def phase_slice(scene):
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch import Mode
+    from ucoslam_tpu_torch.api import UcoSlam
+    from ucoslam_tpu_torch.matching import projection
+    from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
+
+    ref, cam, seq, images = scene
     frames = list(reversed(range(seq.n_frames)))
-    images = {i: seq.render(i) for i in frames}
 
     slam = UcoSlam(device="cuda")
     slam.readFromFile(MAP_PATH, cam)
@@ -384,8 +419,7 @@ def phase_slice():
     check(len(idx) >= 3, f"tracked only {len(idx)} frames")
     for p in poses.values():
         check(p.shape == (4, 4) and np.isfinite(p).all(), "non-finite pose")
-    ate = ate_rmse(np.stack([camera_center(poses[i]) for i in idx]),
-                   seq.gt_positions()[idx], with_scale=True)
+    ate = ate_of(poses, seq)
     dev = max(np.linalg.norm(camera_center(poses[i]) - camera_center(ref_poses[i]))
               for i in idx if i in ref_poses)
     tol = 0.02 * ref["depth_extent"]
@@ -404,7 +438,177 @@ def phase_slice():
     return launches
 
 
-def main() -> int:
+#: the timed steps of MapManager.new_keyframe, by the method that runs each
+KEYFRAME_STEPS = {"epipolar": "_create_epipolar_points", "fuse": "_fuse_duplicates",
+                  "cull_points": "_cull_recent_points", "cull_keyframes": "_cull_keyframes"}
+
+
+def slam_pass(params, cam, images) -> dict:
+    """One forward SLAM pass of `UcoSlam(device="cuda")` over the images:
+    each `process` timed and classed by what the frame did (init, track, or
+    a keyframe insertion), `new_keyframe` and its steps timed, the kernels'
+    launches counted, and the B1 inputs of the last duplicate fusion kept."""
+    import torch
+    from ucoslam_tpu_torch.api import UcoSlam
+    from ucoslam_tpu_torch.matching import projection
+    from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
+    from ucoslam_tpu_torch.optim import ba
+
+    slam = UcoSlam(device="cuda")
+    slam.setParams(None, params, cam)
+    mgr = slam._system.manager
+    steps = {"new_keyframe": timed(mgr, "new_keyframe")}
+    steps.update({k: timed(mgr, m) for k, m in KEYFRAME_STEPS.items()})
+    inner_ba, inner_match = ba.local_bundle_adjustment, projection.project_match
+    steps["local_ba"] = timed(ba, "local_bundle_adjustment")
+    timed_fuse, in_fuse, fuse_args = mgr._fuse_duplicates, [], []
+
+    def fuse(*args):
+        in_fuse.append(True)
+        out = timed_fuse(*args)
+        in_fuse.clear()
+        return out
+
+    def match(*args):
+        if in_fuse:
+            fuse_args[:] = [a.clone() for a in args]
+        return inner_match(*args)
+
+    mgr._fuse_duplicates, projection.project_match = fuse, match
+    poses, t_frame = {}, {"init": [], "track": [], "keyframe": []}
+    match_kernel.launches = 0
+    lm_kernel.launches = 0
+    for i, img in enumerate(images):
+        mapped, inserted = slam.map.n_keyframes > 0, mgr.n_insertions
+        t0 = time.perf_counter()
+        pose = slam.process(img, fseq=i)
+        torch.cuda.synchronize()
+        kind = "keyframe" if mgr.n_insertions > inserted else "track" if mapped else "init"
+        t_frame[kind].append(1e3 * (time.perf_counter() - t0))
+        if pose is not None:
+            poses[i] = pose
+    launches = {"B1": match_kernel.launches, "B2": lm_kernel.launches}
+    ba.local_bundle_adjustment, projection.project_match = inner_ba, inner_match
+    return dict(slam=slam, poses=poses, t_frame=t_frame, steps=steps, launches=launches,
+                attempts=slam._system.tracker.n_attempts, insertions=mgr.n_insertions,
+                fuse_args=tuple(fuse_args))
+
+
+def check_slam_launches(run: dict, what: str) -> None:
+    n1, n2, a, k = run["launches"]["B1"], run["launches"]["B2"], run["attempts"], run["insertions"]
+    check(a > 0 and k > 0, f"{what}: {a} track attempts and {k} keyframe insertions")
+    check(n1 == 2 * a + k, f"{what}: B1 launched {n1} times for {a} track attempts and {k} insertions")
+    check(n2 == 2 * a, f"{what}: B2 launched {n2} times for {a} track attempts")
+
+
+def phase_slam(scene, map_path: str) -> dict:
+    """Phase 5 -> the kernels' launches on its main path, and B1's record at
+    the last fusion's inputs."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch import Mode
+    from ucoslam_tpu_torch.api import UcoSlam
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.io.serialize import load_map_meta
+    from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
+
+    ref, cam, seq, images = scene
+    jax_meta = load_map_meta(map_path)
+    params = Params.from_dict(jax_meta["params"])  # what the JAX package mapped with
+    jax_insertions = jax_meta["extra"]["kf_counter"] - 2  # after its two-view init
+
+    run = slam_pass(params, cam, images)
+    slam, poses, t_frame, steps = run["slam"], run["poses"], run["t_frame"], run["steps"]
+    check(len(poses) >= 3, f"pass 1 tracked only {len(poses)} frames")
+    for p in poses.values():
+        check(p.shape == (4, 4) and np.isfinite(p).all(), "non-finite pose in pass 1")
+    ate = ate_of(poses, seq)
+    slam.map.check_consistency()
+    loops = slam._system.manager.loop_detector
+    print(f"[5 slam] pass 1: frames={len(images)} tracked={len(poses)} (jax {ref['pass1_tracked']}) "
+          f"ate={ate:.6f} (jax {ref['pass1_ate']:.6f}) keyframes={slam.map.n_keyframes} "
+          f"(jax {ref['n_keyframes']}) points={slam.map.n_points} (jax {ref['n_points']}) "
+          f"insertions={run['insertions']} (jax {jax_insertions}) loop_queries={loops.n_queries} "
+          f"loop_candidates={loops.n_candidates} attempts={run['attempts']} launches={run['launches']}")
+    check(len(poses) >= ref["pass1_tracked"] - 2, "pass 1 tracked over 2 frames fewer than the JAX package")
+    check(ate <= 1.2 * ref["pass1_ate"] + 0.002, f"pass 1 ATE {ate} over the limit")
+    check_slam_launches(run, "pass 1")
+    # determinism: a second pass in the same process
+    again = slam_pass(params, cam, images)
+    check_slam_launches(again, "pass 1 again")
+    sig, sig_again = slam.getSignatureStr(), again["slam"].getSignatureStr()
+    print(f"[5 slam] determinism: signature={sig} again={sig_again} tracked_again={len(again['poses'])}")
+    check(sig == sig_again, "a second pass 1 gave another signature")
+    launches = {k: n + again["launches"][k] for k, n in run["launches"].items()}
+    fuse_launches = run["insertions"] + again["insertions"]
+    del again
+
+    # B1 at the last duplicate fusion's inputs: the full arena at a 3 px radius
+    args = run["fuse_args"]
+    got, want = match_kernel.project_match(*args), match_kernel.project_match_plain(*args)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"B1 differs from its plain version at the fusion's inputs (max abs err {err})")
+    fuse_ms = median_ms(lambda: match_kernel.project_match(*args), 50)
+    fuse_plain_ms = median_ms(lambda: match_kernel.project_match_plain(*args), 5)
+    fuse_bound_ms, fuse_bound_by, passing = b1_bound(args)
+
+    # save, reload in a fresh instance, localize the sequence in reverse
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "slam.slm")
+        slam.saveToFile(path)
+        loc = UcoSlam(device="cuda")
+        loc.readFromFile(path, cam)
+    check(loc.getSignatureStr() == slam.getSignatureStr(), "the reloaded checkpoint has another signature")
+    loc.setMode(Mode.LOCALIZATION)
+    match_kernel.launches = 0
+    lm_kernel.launches = 0
+    rev, t_rev = {}, []
+    for i in reversed(range(len(images))):
+        t0 = time.perf_counter()
+        pose = loc.process(images[i], fseq=i)
+        torch.cuda.synchronize()
+        t_rev.append(1e3 * (time.perf_counter() - t0))
+        if pose is not None:
+            rev[i] = pose
+    rev_launches = {"B1": match_kernel.launches, "B2": lm_kernel.launches}
+    rev_attempts = loc._system.tracker.n_attempts
+    check(len(rev) >= 3, f"the reverse sweep tracked only {len(rev)} frames")
+    rev_ate = ate_of(rev, seq)
+    print(f"[5 slam] reload + reverse sweep: tracked={len(rev)} (jax {ref['pass2_tracked']}) ate={rev_ate:.6f} "
+          f"(jax {ref['pass2_ate']:.6f}) process_ms_median={np.median(t_rev):.3f} attempts={rev_attempts} "
+          f"launches={rev_launches}")
+    check(len(rev) >= ref["pass2_tracked"] - 2, "the reverse sweep tracked over 2 frames fewer than JAX's")
+    check(rev_ate <= 1.2 * ref["pass2_ate"] + 0.002, f"reverse-sweep ATE {rev_ate} over the limit")
+    for k, n in rev_launches.items():
+        check(n > 0 and n == 2 * rev_attempts, f"{k} launched {n} times for {rev_attempts} track attempts")
+        launches[k] += n
+
+    def med(ts):
+        return f"{np.median(ts):.3f}" if ts else "none"
+
+    culling = [a + b for a, b in zip(steps["cull_points"], steps["cull_keyframes"])]
+    print(f"[5 times] process_ms_median: track={med(t_frame['track'])} (n={len(t_frame['track'])}) "
+          f"keyframe={med(t_frame['keyframe'])} (n={len(t_frame['keyframe'])}) "
+          f"init={med(t_frame['init'])} (n={len(t_frame['init'])}); "
+          f"new_keyframe_ms_median={med(steps['new_keyframe'])}: epipolar={med(steps['epipolar'])} "
+          f"fuse={med(steps['fuse'])} local_ba={med(steps['local_ba'])} (n={len(steps['local_ba'])}) "
+          f"culling={med(culling)}; b1_fuse: live_rows={int(args[3].sum())} of {args[0].shape[0]} "
+          f"keypoints={int(args[7].sum())} gated_pairs={passing} exact kernel_ms={fuse_ms:.4f} "
+          f"plain_ms={fuse_plain_ms:.4f} bound_ms={fuse_bound_ms:.6f} ({fuse_bound_by})")
+    return dict(launches=launches, b1_fuse=dict(
+        launches_fuse=fuse_launches, ms_fuse=fuse_ms,
+        plain_ms_fuse=fuse_plain_ms, bound_ms_fuse=fuse_bound_ms, bound_by_fuse=fuse_bound_by))
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
+    ap.add_argument("--frames", type=int, default=60, choices=(60, 150),
+                    help="frames of the mono scenario that phase 5 maps (the JAX reference's length)")
+    args = ap.parse_args(argv)
     try:
         import torch
     except ImportError:
@@ -426,7 +630,12 @@ def main() -> int:
     name = phase_environment()
     b1 = phase_b1()
     b2 = phase_b2()
-    launches = phase_slice()
+    scene = load_scene(REF_PATH)
+    launches = phase_slice(scene)
+    slam_map, slam_ref = reference_paths(args.frames)
+    slam = phase_slam(scene if args.frames == 60 else load_scene(slam_ref), slam_map)
+    launches = {k: n + slam["launches"][k] for k, n in launches.items()}
+    b1.update(slam["b1_fuse"])
     check("jax" not in sys.modules, "jax was imported")
     check("ucoslam_tpu" not in sys.modules, "the JAX package ucoslam_tpu was imported")
     kernels = [

@@ -150,3 +150,119 @@ def test_lm_kernel_rejects_too_many_rows(card):
     args = [kw.pop(k) for k in ("pose_init", "pts3d", "uv", "sigma2", "valid")]
     with pytest.raises(ValueError, match="rows"):
         lm_kernel.motion_only_lm_fused(*args, 500.0, 500.0, 320.0, 240.0, **kw)
+
+
+def test_match_kernel_equals_plain_at_fuse_inputs(card):
+    """The duplicate fusion's call: the whole 16384-point arena against one
+    keyframe's 2048 keypoints at a 3 px radius (scaled by octave), the live
+    rows in the front of the arena as the map fills it, most rows a noisy
+    copy of a keypoint."""
+    rng = np.random.default_rng(11)
+    args = list(chip_smoke.b1_inputs(card, seed=11))
+    P, N = args[0].shape[0], args[4].shape[0]
+    src = torch.from_numpy(rng.integers(0, N, P)).to(card)
+    flips = np.where(rng.random((P, 8)) < 0.3, 1 << rng.integers(0, 31, (P, 8)), 0).astype(np.int32)
+    args[0] = args[4][src] ^ torch.from_numpy(flips).to(card)
+    args[1] = args[5][src] + torch.from_numpy(rng.normal(0, 1.5, (P, 2)).astype(np.float32)).to(card)
+    args[2] = args[6][src]
+    args[3] = torch.from_numpy((np.arange(P) < 4000) & (rng.random(P) < 0.9)).to(card)
+    args[8] = (3.0 * 1.2 ** args[6].float()) ** 2
+    _assert_b1_equal(args)
+    idx, _, _ = match_kernel.project_match(*args)
+    assert int((idx >= 0).sum()) > 1000
+
+
+def _seeded_map_state(device, seed=0):
+    """A MapState at the library's default widths (P=16384, K=256, N=2048)
+    with random content: 40 active keyframes observing a third of the
+    points, keyframe 1 observing one point twice."""
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.geometry.se3 import se3_exp
+    from ucoslam_tpu_torch.mapping.map import empty_map_state, map_state_from_numpy, map_state_to_numpy
+
+    rng = np.random.default_rng(seed)
+    a = map_state_to_numpy(empty_map_state(Params().replace(detectMarkers=False), "cpu"))
+    K, N, _ = a["kf_desc"].shape
+    P = a["pt_pos"].shape[0]
+    kf_active = np.arange(K) < 40
+    pt_active = np.arange(P) < P // 3
+    alive = np.nonzero(pt_active)[0]
+    ids = np.where(rng.random((K, N)) < 0.5, rng.choice(alive, (K, N)), -1).astype(np.int32)
+    ids[~kf_active] = -1
+    ids[1, 5] = ids[1, 9] = alive[3]
+    xi = np.c_[rng.normal(0, 0.5, (K, 3)), rng.normal(0, 0.2, (K, 3))].astype(np.float32)
+    a.update(
+        pt_pos=np.c_[rng.uniform(-3, 3, (P, 2)), rng.uniform(2, 8, P)].astype(np.float32),
+        pt_desc=rng.integers(0, 2**32, (P, 8), dtype=np.uint32), pt_active=pt_active,
+        kf_pose=se3_exp(torch.from_numpy(xi)).numpy(), kf_fseq=rng.permutation(1000)[:K].astype(np.int32),
+        kf_active=kf_active, kf_octave=rng.integers(0, 8, (K, N)).astype(np.int32),
+        kf_desc=rng.integers(0, 2**32, (K, N, 8), dtype=np.uint32),
+        kf_kpt_valid=(rng.random((K, N)) < 0.9) & kf_active[:, None], kf_ids=ids,
+    )
+    return map_state_from_numpy(a, device)
+
+
+def test_update_point_stats_on_card_is_repeatable(card):
+    """Two runs on the card are bit-equal (no atomic float sums), and agree
+    with the CPU: descriptors exactly, normals and bounds within 1e-6."""
+    from ucoslam_tpu_torch.mapping.map import map_state_to_numpy, op_update_point_stats
+
+    want = map_state_to_numpy(op_update_point_stats(_seeded_map_state("cpu"), 1.2, 8))
+    st = _seeded_map_state(card)
+    a = map_state_to_numpy(op_update_point_stats(st, 1.2, 8))
+    b = map_state_to_numpy(op_update_point_stats(st, 1.2, 8))
+    for k in want:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+        if k in ("pt_normal", "pt_min_dist", "pt_max_dist"):
+            np.testing.assert_allclose(a[k], want[k], rtol=1e-6, atol=1e-6, err_msg=k)
+        else:
+            np.testing.assert_array_equal(a[k], want[k], err_msg=k)
+
+
+def test_ba_solve_dense_on_card_matches_cpu(card):
+    """The dense Schur LM on a map the port built from 29 oracle frames (5
+    keyframes), all keyframes, the two oldest fixed, the points seen by 3
+    or more, from perturbed points and poses: the card within 1e-4
+    (relative to the largest value) of the CPU, with the same bad
+    associations. The bound is held against the problem's own
+    conditioning: on the CPU, a start that differs in the last bits of its
+    points moves the solution by under 4e-5 (checked here; with the points
+    seen twice, or from fewer frames, the problem conditions too poorly
+    for the bound)."""
+    import dataclasses
+
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
+    from ucoslam_tpu_torch.optim import ba
+    from ucoslam_tpu_torch.slam.system import System
+
+    seq = SyntheticSequence(n_frames=40, seed=1)
+    params = Params().replace(maxMapPoints=4096, maxKeyFrames=32, maxKeyPointsPerFrame=512,
+                              maxDescDistance=60.0, detectMarkers=False)
+    slam = System(params, seq.cam, device="cpu")
+    for i in range(29):
+        slam.process_frame(seq.frame(i, device="cpu"))
+    assert slam.map.n_keyframes >= 5
+    problem, _, pt_slots = ba.build_ba_problem(
+        slam.map, seq.cam, fixed_kfs=slam.map.keyframes.active_slots()[:2], min_obs=3)
+    rng = np.random.default_rng(0)
+    pt = problem.pt_pos.numpy()
+    problem.pt_pos = torch.from_numpy(pt + (rng.normal(0, 0.02, pt.shape) * np.abs(pt)).astype(np.float32))
+    free = (problem.cam_valid & ~problem.cam_fixed).numpy()
+    pose = problem.cam_pose.numpy().copy()
+    pose[free, :3, 3] += rng.normal(0, 0.01, (int(free.sum()), 3)).astype(np.float32)
+    problem.cam_pose = torch.from_numpy(pose)
+
+    want = ba.ba_solve(problem, seq.cam, iters=10, stages=2)
+    nudge = torch.from_numpy((1 + 1e-7 * rng.normal(size=pt.shape)).astype(np.float32))
+    nudged = ba.ba_solve(dataclasses.replace(problem, pt_pos=problem.pt_pos * nudge), seq.cam, iters=10, stages=2)
+    assert float((nudged.pt_pos - want.pt_pos).abs().max()) < 4e-5
+    on_card = dataclasses.replace(problem, **{
+        f.name: getattr(problem, f.name).to(card)
+        for f in dataclasses.fields(problem) if isinstance(getattr(problem, f.name), torch.Tensor)})
+    got = ba.ba_solve(on_card, seq.cam, iters=10, stages=2)
+    for k in ("cam_pose", "pt_pos"):
+        w = getattr(want, k)
+        assert float((getattr(got, k).cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max()), k
+    assert torch.equal(got.obs_bad.cpu(), want.obs_bad)
+    assert len(pt_slots) > 200

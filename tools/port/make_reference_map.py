@@ -9,12 +9,18 @@ protocol on the rendered `mono` scenario:
   checkpoint restores.
 
 The sequence is the `mono` parity scenario at the library's default widths
-(the constants below). Outputs, under `--out-dir` (default
-`data/torch_port`): `mono_map.slm` (the checkpoint) and
-`mono_reverse_jax.json` (pass-1/2 tracked counts, ATE, the pass-2 poses,
-and the scene's depth extent used by the per-frame gate).
+(the constants below), over `--frames` frames (default 60). Outputs, under
+`--out-dir` (default `data/torch_port`): `mono_map.slm` (the checkpoint) and
+`mono_reverse_jax.json` (pass-1/2 tracked counts, ATE, keyframe insertions,
+the pass-2 poses, and the scene's depth extent used by the per-frame gate);
+with another frame count F, `monoF_map.slm` and `monoF_reverse_jax.json`.
 
-    JAX_PLATFORMS=cpu python -m tools.port.make_reference_map
+    JAX_PLATFORMS=cpu python -m tools.port.make_reference_map [--frames 150]
+
+With `--init-seeds N`, runs only pass 1, once for each of N keys of the
+two-view init's draws (0x1717, the package's own, then 1, 2, ...), and
+writes `mono[F]_init_spread_jax.json` (per key: tracked frames, ATE,
+keyframes, points), the JAX side of `tools/port/slam_spread.py`.
 """
 
 from __future__ import annotations
@@ -87,31 +93,61 @@ def run(params: Params, cam: CameraParams, seq: SyntheticSequence, map_path: str
         "pass2_ate": ate_of(rev, seq),
         "n_points": slam.map.n_points,
         "n_keyframes": slam.map.n_keyframes,
+        "pass1_insertions": slam._system.manager.kf_counter - 2,  # after the two-view init
         "map_signature": saved_signature,
         "depth_extent": extent,
     }
     return summary, rev
 
 
+def init_spread(params: Params, cam: CameraParams, seq: SyntheticSequence, n_keys: int) -> list[dict]:
+    """Pass 1 once per PRNG key of the initializer's draws."""
+    import jax
+
+    runs = []
+    for key in [0x1717] + list(range(1, n_keys)):
+        slam = UcoSlam()
+        slam.setParams(None, params, cam)
+        slam._system.initializer._key = jax.random.PRNGKey(key)
+        fwd = {}
+        for i in range(seq.n_frames):
+            pose = slam.process(seq.render(i), fseq=i)
+            if pose is not None:
+                fwd[i] = np.asarray(pose, np.float32)
+        runs.append(dict(key=key, init_frame=min(fwd) if fwd else None, tracked=len(fwd), ate=ate_of(fwd, seq),
+                         keyframes=slam.map.n_keyframes, points=slam.map.n_points))
+        print(json.dumps(runs[-1]), flush=True)
+    return runs
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default="data/torch_port")
+    ap.add_argument("--frames", type=int, default=SEQUENCE["n_frames"])
+    ap.add_argument("--init-seeds", type=int, default=0)
     args = ap.parse_args(argv)
 
     os.makedirs(args.out_dir, exist_ok=True)
     c = CAMERA
     cam = CameraParams.create(c["fx"], c["fy"], c["cx"], c["cy"], width=c["width"], height=c["height"])
-    seq = SyntheticSequence(cam=cam, **SEQUENCE)
-    map_path = os.path.join(args.out_dir, "mono_map.slm")
+    sequence = dict(SEQUENCE, n_frames=args.frames)
+    seq = SyntheticSequence(cam=cam, **sequence)
+    name = "mono" if args.frames == SEQUENCE["n_frames"] else f"mono{args.frames}"
+    if args.init_seeds:
+        runs = init_spread(PARAMS, cam, seq, args.init_seeds)
+        with open(os.path.join(args.out_dir, f"{name}_init_spread_jax.json"), "w") as f:
+            json.dump({"sequence": sequence, "runs": runs}, f, indent=1)
+        return
+    map_path = os.path.join(args.out_dir, f"{name}_map.slm")
     summary, rev = run(PARAMS, cam, seq, map_path)
     out = {
-        "sequence": SEQUENCE,
+        "sequence": sequence,
         "camera": CAMERA,
         **summary,
         "slm_bytes": os.path.getsize(map_path),
         "reverse_poses": {str(i): rev[i].tolist() for i in sorted(rev)},
     }
-    with open(os.path.join(args.out_dir, "mono_reverse_jax.json"), "w") as f:
+    with open(os.path.join(args.out_dir, f"{name}_reverse_jax.json"), "w") as f:
         json.dump(out, f, indent=1)
     print(json.dumps({k: v for k, v in out.items() if k != "reverse_poses"}))
 

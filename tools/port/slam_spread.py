@@ -1,0 +1,95 @@
+"""Spread of the port's monocular SLAM over the two-view init's draws.
+
+The initializer draws its 256 F/H hypotheses from a numpy Generator seeded
+0x1717 (`slam/initializer.py`); the JAX package draws from its own PRNG, so
+the two packages' first maps differ by the draws alone, and so does all the
+drift that follows. This runs pass 1 of chip_smoke.py's phase 5
+(`UcoSlam(device="cuda").setParams` -> `process` per frame, with the
+parameters the JAX package mapped with) once per seed, and prints per seed
+the frame the init landed on, the frames tracked, the ATE, the keyframes,
+points and insertions, beside the JAX package's one run; then the spread.
+
+    python3 tools/port/slam_spread.py --frames 150 --seeds 5 [--out FILE]
+
+Seeds: 0x1717 (the port's own) and 1, 2, ... Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, REPO)
+
+import chip_smoke  # noqa: E402
+from ucoslam_tpu_torch.api import UcoSlam  # noqa: E402
+from ucoslam_tpu_torch.config import Params  # noqa: E402
+from ucoslam_tpu_torch.io.serialize import load_map_meta  # noqa: E402
+
+
+def pass1(scene, params: Params, seed: int, device="cuda") -> dict:
+    """One forward SLAM pass with the initializer's draws seeded `seed`."""
+    ref, cam, seq, images = scene
+    slam = UcoSlam(device=device)
+    slam.setParams(None, params, cam)
+    slam._system.initializer._rng = np.random.default_rng(seed)
+    poses = {}
+    t0 = time.perf_counter()
+    for i, img in enumerate(images):
+        pose = slam.process(img, fseq=i)
+        if pose is not None:
+            poses[i] = pose
+    return dict(seed=seed, init_frame=min(poses) if poses else None, tracked=len(poses),
+                ate=chip_smoke.ate_of(poses, seq) if len(poses) >= 3 else None,
+                keyframes=slam.map.n_keyframes, points=slam.map.n_points,
+                insertions=slam._system.manager.n_insertions, seconds=time.perf_counter() - t0)
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--frames", type=int, default=60, choices=(60, 150))
+    ap.add_argument("--seeds", type=int, default=5)
+    ap.add_argument("--out", default=None, help="also write the JSON summary here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("slam_spread: no CUDA device")
+    from ucoslam_tpu_torch.slam.system import disable_tf32
+
+    disable_tf32()
+    map_path, ref_path = chip_smoke.reference_paths(args.frames)
+    scene = chip_smoke.load_scene(ref_path)
+    ref = scene[0]
+    params = Params.from_dict(load_map_meta(map_path)["params"])
+    runs = []
+    for seed in [0x1717] + list(range(1, args.seeds)):
+        runs.append(pass1(scene, params, seed))
+        print(json.dumps(runs[-1]), flush=True)
+    ates = [r["ate"] for r in runs if r["ate"] is not None]
+    summary = dict(
+        frames=args.frames, device=torch.cuda.get_device_name(0),
+        nvidia_smi=subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                  capture_output=True, text=True, timeout=60).stdout.strip(),
+        jax=dict(tracked=ref["pass1_tracked"], ate=ref["pass1_ate"], keyframes=ref["n_keyframes"],
+                 points=ref["n_points"], insertions=ref.get("pass1_insertions")),
+        ate_min=min(ates), ate_median=float(np.median(ates)), ate_max=max(ates),
+        tracked_min=min(r["tracked"] for r in runs), tracked_max=max(r["tracked"] for r in runs),
+        gate_ate=1.2 * ref["pass1_ate"] + 0.002,
+        within_gate=sum(a <= 1.2 * ref["pass1_ate"] + 0.002 for a in ates), runs=runs,
+    )
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(summary, f, indent=1)
+    print(json.dumps({k: v for k, v in summary.items() if k != "runs"}))
+
+
+if __name__ == "__main__":
+    main()

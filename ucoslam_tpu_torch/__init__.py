@@ -8,10 +8,11 @@ kernels for `sm_90a` (`csrc/`), built with `nvcc` at their first launch on a
 CUDA tensor (`ops/cuda`). On a CPU tensor every kernel wrapper runs its plain
 PyTorch version instead, which is what the CPU tests exercise.
 
-Ported so far: monocular LOCALIZATION against a saved map
-(`UcoSlam.readFromFile` -> `setMode(Mode.LOCALIZATION)` -> `process(img)`).
-Mapping, relocalization, markers and stereo/RGB-D input are not ported yet
-(ROADMAP.md, Queue 1).
+Ported so far: monocular SLAM in sequential mode (`UcoSlam.setParams` ->
+`process(img)` per frame -> `saveToFile`) and LOCALIZATION against a saved
+map (`readFromFile` -> `setMode(Mode.LOCALIZATION)` -> `process(img)`).
+Relocalization, markers, stereo/RGB-D input, loop correction, global BA
+and the async mapper are not ported yet (ROADMAP.md, Queue 1).
 
 This package imports neither jax nor anything of `ucoslam_tpu`: `Params`,
 `Mode` and `TrackingState` are its own (`ucoslam_tpu_torch.config`).

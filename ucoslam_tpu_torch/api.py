@@ -1,21 +1,26 @@
 """Public facade: the UcoSlam-equivalent user-facing class.
 
-Port of part of `ucoslam_tpu/api.py`: load a checkpoint the reference wrote
-(`readFromFile`), switch to LOCALIZATION (`setMode`) and serve frames
-(`process`), plus the pose and signature queries. Building a map (setParams
-+ SLAM mode), saving and global BA are not ported yet.
+Port of `ucoslam_tpu/api.py` for monocular sequential SLAM and
+LOCALIZATION: `setParams` (a fresh map, or one passed in) -> `process` per
+frame -> `saveToFile` (map, tracker state, keyframe database, extractor
+sensitivity); `readFromFile` restores all of it; `setMode`,
+`updateParams`, `resetTracker` and the pose and signature queries. Stereo
+and RGB-D input, markers, `.fbow` vocabularies and `globalOptimization`
+are not ported yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from ucoslam_tpu_torch.config import Mode, TrackingState
+from ucoslam_tpu_torch.config import Mode, Params, TrackingState
 from ucoslam_tpu_torch.features.frame_extractor import FrameExtractor
 from ucoslam_tpu_torch.geometry.camera import CameraParams
-from ucoslam_tpu_torch.io.serialize import load_map, load_map_extra_arrays, load_map_meta
+from ucoslam_tpu_torch.io.serialize import load_map, load_map_extra_arrays, load_map_meta, save_map
+from ucoslam_tpu_torch.mapping.frame import Frame
+from ucoslam_tpu_torch.mapping.kfdatabase import KeyFrameDataBase
 from ucoslam_tpu_torch.mapping.map import Map
-from ucoslam_tpu_torch.slam.system import System
+from ucoslam_tpu_torch.slam.system import NOT_PORTED_MARKERS, System
 
 
 class UcoSlam:
@@ -23,37 +28,101 @@ class UcoSlam:
         self.device = device
         self._system: System | None = None
         self._extractor: FrameExtractor | None = None
+        self._params = Params()
         self._map: Map | None = None
-        self._kfdb_arrays: dict = {}
+
+    def setParams(self, world_map: Map | None, params: Params, cam: CameraParams,
+                  vocabulary: str | None = None, marker_detector=None) -> None:
+        if marker_detector is not None or params.detectMarkers:
+            raise NotImplementedError(NOT_PORTED_MARKERS)
+        self._params = params
+        self._map = world_map if world_map is not None else Map(params, device=self.device)
+        self._system = System(params, cam, self._map, device=self.device)
+        self._extractor = FrameExtractor(params, cam, self.device)
+        if vocabulary:
+            self._system.manager.kfdb.load_vocabulary(vocabulary)
 
     def process(self, img: np.ndarray, fseq: int = 0) -> np.ndarray | None:
         """Monocular frame -> pose_f2g (4x4) or None when lost."""
         return self._system.process_frame(self._extractor.process(img, fseq))
 
+    def process_frame(self, frame: Frame) -> np.ndarray | None:
+        """Feed a pre-extracted Frame (the oracle path of the tests)."""
+        return self._system.process_frame(frame)
+
     def setMode(self, mode: Mode) -> None:
         self._system.set_mode(mode)
 
+    def updateParams(self, params: Params) -> None:
+        """Change Params on a live system; reaches every component's copy."""
+        self._params = params
+        if self._system is not None:
+            self._system.set_params(params)
+
+    def resetTracker(self) -> None:
+        self._system.reset_tracker()
+
+    def saveToFile(self, path: str) -> None:
+        """Full session checkpoint: map, motion model, counters, keyframe
+        database and extractor sensitivity, in the reference's layout."""
+        sysd = self._system
+        meta = {
+            "pose": None if sysd.pose is None else sysd.pose.tolist(),
+            "prev_pose": None if sysd.prev_pose is None else sysd.prev_pose.tolist(),
+            "velocity": sysd.velocity.tolist(),
+            "state": int(sysd.state),
+            "mode": int(sysd.mode),
+            "frames_since_kf": sysd.frames_since_kf,
+            "kf_counter": sysd.manager.kf_counter,
+            "last_kf_inliers": sysd.last_kf_inliers,
+            "metric_locked": sysd.manager.metric_locked,
+            "last_kf_rot": None if sysd._last_kf_rot is None else sysd._last_kf_rot.tolist(),
+            "init_failures": sysd._init_failures,
+            "kfdb_dummy": sysd.manager.kfdb.dummy,
+            "fast_threshold": None if self._extractor is None else float(self._extractor.orb.fast_threshold),
+        }
+        kfdb = sysd.manager.kfdb
+        arrays = {
+            "kfdb_word_ids": kfdb.word_ids.cpu().numpy(),
+            "kfdb_word_w": kfdb.word_w.cpu().numpy(),
+            "kfdb_vocab": kfdb.vocab.cpu().numpy().view(np.uint32),
+        }
+        if kfdb.weights is not None:
+            arrays["kfdb_weights"] = kfdb.weights.cpu().numpy()
+        save_map(self._map, path, extra_meta=meta, extra_arrays=arrays)
+
     def readFromFile(self, path: str, cam: CameraParams) -> None:
-        """Restore a session checkpoint: the map plus the tracker state
-        (pose, velocity, state, mode, counters)."""
+        """Restore a session checkpoint: the map, the keyframe database and
+        the tracker state (pose, velocity, state, mode, counters)."""
         self._map = load_map(path, self.device)
-        params = self._map.params
+        params = self._params = self._map.params
         if params.detectMarkers:
-            raise NotImplementedError(
-                "marker detection is not ported yet (ROADMAP.md, Queue 1: markers)"
-            )
-        # the keyframe database: read, unused until relocalization is ported
-        self._kfdb_arrays = load_map_extra_arrays(path)
+            raise NotImplementedError(NOT_PORTED_MARKERS)
+        arrays = load_map_extra_arrays(path)
         meta = load_map_meta(path).get("extra", {})
-        sysd = self._system = System(params, cam, self._map, self.device)
+        kfdb = None
+        if "kfdb_vocab" in arrays:
+            kfdb = KeyFrameDataBase(
+                arrays["kfdb_word_ids"].shape[0] if "kfdb_word_ids" in arrays else max(self._map.keyframes.capacity, 1),
+                vocab=arrays["kfdb_vocab"], weights=arrays.get("kfdb_weights"),
+                dummy=bool(meta.get("kfdb_dummy", False)), device=self.device,
+            )
+            if "kfdb_word_ids" in arrays:  # the serialized postings
+                kfdb.word_ids.copy_(kfdb.word_ids.new_tensor(arrays["kfdb_word_ids"]))
+                kfdb.word_w.copy_(kfdb.word_w.new_tensor(arrays["kfdb_word_w"]))
+            else:  # a legacy checkpoint: postings rebuilt from the keyframes
+                st = self._map.state
+                for s in self._map.keyframes.active_slots():
+                    kfdb.add(int(s), st.kf_desc[int(s)], st.kf_kpt_valid[int(s)])
+        sysd = self._system = System(params, cam, self._map, kfdb=kfdb, device=self.device)
         self._extractor = FrameExtractor(params, cam, self.device)
         if meta.get("fast_threshold") is not None:
             self._extractor.orb.fast_threshold = float(meta["fast_threshold"])
         if "metric_locked" in meta:
-            sysd.metric_locked = bool(meta["metric_locked"])
+            sysd.manager.metric_locked = bool(meta["metric_locked"])
         else:
-            st = self._map.state
-            sysd.metric_locked = bool(st.mk_pose_valid.any() or (st.kf_depth > 0).any())
+            mk_valid, kf_depth = self._map.h("mk_pose_valid", "kf_depth")
+            sysd.manager.metric_locked = bool(mk_valid.any() or (kf_depth > 0).any())
         if meta.get("pose") is not None:
             sysd.pose = np.asarray(meta["pose"], np.float32)
             sysd.state = TrackingState(meta.get("state", 0))
@@ -63,8 +132,11 @@ class UcoSlam:
             sysd.velocity = np.asarray(meta["velocity"], np.float32)
         sysd.frames_since_kf = meta.get("frames_since_kf", 0)
         sysd.mode = Mode(meta.get("mode", 0))
-        sysd.kf_counter = meta.get("kf_counter", self._map.n_keyframes)
+        sysd.manager.kf_counter = meta.get("kf_counter", self._map.n_keyframes)
         sysd.last_kf_inliers = meta.get("last_kf_inliers", 0)
+        if meta.get("last_kf_rot") is not None:
+            sysd._last_kf_rot = np.asarray(meta["last_kf_rot"], np.float32)
+        sysd._init_failures = meta.get("init_failures", 0)
 
     @property
     def map(self) -> Map:

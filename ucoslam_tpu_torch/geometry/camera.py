@@ -43,6 +43,24 @@ class CameraParams:
     def has_distortion(self) -> bool:
         return any(abs(v) > 0 for v in self.dist)
 
+    def K(self, device="cpu") -> torch.Tensor:
+        """(3, 3) float32 intrinsic matrix on `device`."""
+        return torch.tensor(
+            [[self.fx, 0.0, self.cx], [0.0, self.fy, self.cy], [0.0, 0.0, 1.0]],
+            dtype=torch.float32, device=device,
+        )
+
+    @property
+    def bf(self) -> float:
+        """baseline * fx, the stereo disparity scale (float32 product)."""
+        return _f32(np.float32(self.fx) * np.float32(self.bl))
+
+    def unproject(self, uv: torch.Tensor, depth: torch.Tensor) -> torch.Tensor:
+        """Undistorted pixels (..., 2) + depth (...,) -> camera-frame (..., 3)."""
+        x = (uv[..., 0] - self.cx) / self.fx
+        y = (uv[..., 1] - self.cy) / self.fy
+        return torch.stack([x * depth, y * depth, depth], -1)
+
     def project(self, xyz: torch.Tensor) -> torch.Tensor:
         """Camera-frame points (..., 3) -> undistorted pixels (..., 2)."""
         z = xyz[..., 2:3]

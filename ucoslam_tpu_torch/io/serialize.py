@@ -1,9 +1,10 @@
-"""Load checkpoints written by the reference (`ucoslam_tpu.io.serialize`).
+"""Checkpoints: save and load maps and session state.
 
-A checkpoint is a zip holding `meta.json` (magic, params, map signature,
-session state under `extra`) and `arrays.npz` (MapState under `state/`, the
-arena masks under `arena/`, session arrays under `extra/`). numpy reads it
-without JAX. Saving is not ported yet.
+Port of `ucoslam_tpu/io/serialize.py`. A checkpoint is a zip holding
+`meta.json` (magic, format version, params, map signature, session state
+under `extra`) and `arrays.npz` (MapState under `state/`, the arena masks
+under `arena/`, session arrays under `extra/`), the reference's layout:
+descriptors are written as uint32, so each package reads the other's files.
 """
 
 from __future__ import annotations
@@ -15,9 +16,34 @@ import zipfile
 import numpy as np
 
 from ucoslam_tpu_torch.config import Params
-from ucoslam_tpu_torch.mapping.map import Map, map_state_from_numpy
+from ucoslam_tpu_torch.mapping.map import Map, map_state_from_numpy, map_state_to_numpy
 
 MAGIC = 225237123  # the reference map files' magic number
+FORMAT_VERSION = 1
+
+
+def save_map(world_map: Map, path: str, extra_meta: dict | None = None, extra_arrays: dict | None = None) -> None:
+    """`extra_meta` (JSON) and `extra_arrays` (npz under extra/) carry the
+    session state beyond the map itself."""
+    meta = {
+        "magic": MAGIC,
+        "version": FORMAT_VERSION,
+        "params": world_map.params.to_dict(),
+        "signature": world_map.signature(),
+    }
+    if extra_meta:
+        meta["extra"] = extra_meta
+    arrays = {f"state/{k}": v for k, v in map_state_to_numpy(world_map.state).items()}
+    arrays["arena/points"] = world_map.points.active
+    arrays["arena/keyframes"] = world_map.keyframes.active
+    arrays["arena/markers"] = world_map.markers.active
+    for k, v in (extra_arrays or {}).items():
+        arrays[f"extra/{k}"] = np.asarray(v)
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED) as z:
+        z.writestr("meta.json", json.dumps(meta))
+        z.writestr("arrays.npz", buf.getvalue())
 
 
 def load_map(path: str, device) -> Map:

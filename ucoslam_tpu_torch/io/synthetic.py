@@ -1,16 +1,19 @@
-"""Synthetic sequences with ground truth: the rendered image path (numpy).
+"""Synthetic sequences with ground truth: rendered images and oracle frames.
 
 Port of `ucoslam_tpu/io/synthetic.py` (`SyntheticSequence.__init__`,
-`render`, `gt_pose`, `gt_positions`) without markers and the oracle-frame
-mode. It draws the same random streams in the same order, so the images are
-byte-identical to the reference's for the same arguments.
+`render`, `frame`, `gt_pose`, `gt_positions`) without markers. It draws the
+same random streams in the same order, so the images are byte-identical to
+the reference's for the same arguments, and the oracle frames hold the same
+keypoints and descriptors.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ucoslam_tpu_torch.geometry.camera import CameraParams
+from ucoslam_tpu_torch.mapping.frame import Frame, empty_frame, tensor_from_numpy
 
 
 def _lookat(eye: np.ndarray, target: np.ndarray, up=np.array([0.0, -1.0, 0.0])):
@@ -33,16 +36,27 @@ class SyntheticSequence:
         cam: CameraParams | None = None,
         n_points: int = 1200,
         n_frames: int = 60,
+        n_kpt_slots: int = 512,  # oracle frames: keypoint capacity
+        noise_px: float = 0.3,  # oracle frames: keypoint noise
+        desc_bit_flips: int = 8,  # oracle frames: flipped descriptor bits
         trajectory: str = "arc",
+        depth_mode: str = "mono",  # mono | stereo | rgbd (oracle depth)
         seed: int = 0,
         motion_scale: float = 1.0,
+        n_markers: int = 0,
         roll_deg: float = 0.0,  # sinusoidal camera roll over the sequence
         brightness_drift: float = 0.0,  # per-frame global gain amplitude
     ):
+        if n_markers:
+            raise NotImplementedError("markers are not ported yet (ROADMAP.md, Queue 1 item 3: markers)")
         self.cam = cam or CameraParams.create(
             500.0, 500.0, 320.0, 240.0, width=640, height=480, bl=0.1
         )
         self.n_frames = n_frames
+        self.n_kpt_slots = n_kpt_slots
+        self.noise_px = noise_px
+        self.desc_bit_flips = desc_bit_flips
+        self.depth_mode = depth_mode
         rng = np.random.default_rng(seed)
         if trajectory == "orbit_out":
             ang = rng.uniform(0, 2 * np.pi, n_points)
@@ -69,6 +83,12 @@ class SyntheticSequence:
         self.quad_theta = rngq.uniform(-np.pi / 4, np.pi / 4, n_points).astype(np.float32)
         tex = rngq.uniform(0.45, 1.55, (n_points, 8, 8)).astype(np.float32)
         self.quad_tex = np.clip(tex * self.brightness[:, None, None], 25.0, 255.0).astype(np.float32)
+        # oracle frames' size model: a blob is detected at octave
+        # round(log(d0 / d) / log(1.2)) at distance d (its own random stream)
+        rng_sz = np.random.default_rng(seed + 77003)
+        self.point_d0 = rng_sz.uniform(10.0, 14.0, n_points).astype(np.float32)
+        self.n_octaves = 8
+        self.scale_factor = 1.2
 
         self.poses = []  # (4, 4) pose_f2g (world -> camera) per frame
         center = np.array([0.0, 0.0, 6.0])
@@ -110,6 +130,48 @@ class SyntheticSequence:
     def gt_positions(self) -> np.ndarray:
         """(F, 3) camera centres in world coordinates."""
         return np.stack([-T[:3, :3].T @ T[:3, 3] for T in self.poses])
+
+    def frame(self, i: int, device="cuda") -> Frame:
+        """Oracle Frame of index i: the visible blobs' projections with
+        pixel noise and flipped descriptor bits, deterministic per (seed, i);
+        the same draws in the same order as the reference's."""
+        rng = np.random.default_rng(7919 * i + 13)
+        T = self.poses[i]
+        R, t = T[:3, :3], T[:3, 3]
+        cam_pts = self.points @ R.T + t
+        z = cam_pts[:, 2]
+        uv = self.cam.project(torch.from_numpy(cam_pts)).numpy()
+        w, h = self.cam.width, self.cam.height
+        vis = (z > 0.5) & (uv[:, 0] >= 5) & (uv[:, 0] < w - 5) & (uv[:, 1] >= 5) & (uv[:, 1] < h - 5)
+        idx = np.nonzero(vis)[0]
+        rng.shuffle(idx)
+        idx = np.sort(idx[: self.n_kpt_slots])
+        n, cap = len(idx), self.n_kpt_slots
+        uv_obs = uv[idx] + rng.normal(0, self.noise_px, (n, 2))
+        desc = self.descs[idx].copy()
+        for _ in range(self.desc_bit_flips):
+            word = rng.integers(0, 8, n)
+            bit = rng.integers(0, 32, n).astype(np.uint32)
+            desc[np.arange(n), word] ^= np.uint32(1) << bit
+        depth = np.zeros(cap, np.float32)
+        if self.depth_mode in ("stereo", "rgbd"):
+            depth[:n] = z[idx] * (1.0 + rng.normal(0, 0.002, n))
+        dist = np.linalg.norm(cam_pts[idx], axis=-1).clip(1e-6)
+        octave = np.zeros(cap, np.int32)
+        octave[:n] = np.clip(
+            np.round(np.log(self.point_d0[idx] / dist) / np.log(self.scale_factor)), 0, self.n_octaves - 1
+        ).astype(np.int32)
+        xy = np.vstack([uv_obs, np.zeros((cap - n, 2))]).astype(np.float32)
+        desc = np.vstack([desc, np.zeros((cap - n, 8), np.uint32)])
+
+        def t_(a):
+            return tensor_from_numpy(a, device)
+
+        f = empty_frame(cap, device)
+        return f.replace(
+            fseq=i, xy=t_(xy), und_xy=t_(xy), desc=t_(desc), valid=t_(np.arange(cap) < n),
+            depth=t_(depth), octave=t_(octave),
+        )
 
     def render(self, i: int) -> np.ndarray:
         """(H, W) float32 image of frame i: homography-rasterized textured

@@ -1,8 +1,10 @@
 """Per-frame record: fixed-capacity keypoint tensors (monocular fields).
 
 Port of `ucoslam_tpu/mapping/frame.py` without the marker observations
-(markers are not ported yet). Descriptors are (N, 8) int32 tensors holding
-the reference's uint32 bits.
+(markers are not ported yet), plus the keyframe-slot view of
+`slam/mapmanager.py` (`frame_from_kf`) and the bundled device->host copy
+(`fetch_to_host`). Descriptors are (N, 8) int32 tensors holding the
+reference's uint32 bits.
 """
 
 from __future__ import annotations
@@ -12,6 +14,9 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+#: marker observation slots per frame (the reference's MAX_MARKERS_PER_FRAME)
+MAX_MARKERS_PER_FRAME = 16
 
 
 @dataclass
@@ -54,6 +59,48 @@ def empty_frame(n: int, device) -> Frame:
         ids=torch.full((n,), -1, **i32),
         pose_f2g=torch.eye(4, **f32),
     )
+
+
+def frame_from_kf(state, slot: int) -> Frame:
+    """Keyframe slot `slot` of a MapState as a Frame view (no copies): the
+    stored keypoints are undistorted, and keyframes keep no angle or
+    response, so those are zero, as in the reference's mapmanager."""
+    n = state.N
+    zeros = torch.zeros(n, dtype=torch.float32, device=state.kf_xy.device)
+    return Frame(
+        fseq=int(state.kf_fseq[slot]),
+        xy=state.kf_xy[slot],
+        und_xy=state.kf_xy[slot],
+        octave=state.kf_octave[slot],
+        angle=zeros,
+        response=zeros,
+        desc=state.kf_desc[slot],
+        depth=state.kf_depth[slot],
+        valid=state.kf_kpt_valid[slot],
+        ids=state.kf_ids[slot],
+        pose_f2g=state.kf_pose[slot],
+    )
+
+
+def fetch_to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
+    """Copy several tensors to the host in ONE device->host transfer: each is
+    bit-cast (float32) or converted (bool, integers) to int32, concatenated,
+    copied once, and split again."""
+    flat = torch.cat([
+        t.reshape(-1).view(torch.int32) if t.dtype == torch.float32
+        else t.reshape(-1).to(torch.int32)
+        for t in tensors
+    ]).cpu().numpy()
+    out, start = [], 0
+    for t in tensors:
+        a = flat[start : start + t.numel()].reshape(tuple(t.shape))
+        start += t.numel()
+        if t.dtype == torch.float32:
+            a = a.view(np.float32)
+        elif t.dtype == torch.bool:
+            a = a != 0
+        out.append(a)
+    return out
 
 
 def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:

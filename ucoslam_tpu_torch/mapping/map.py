@@ -1,9 +1,17 @@
 """The world state: fixed-capacity tensors of points, keyframes and markers.
 
-Port of part of `ucoslam_tpu/mapping/map.py`: the `MapState` arenas, the
-host `Map` wrapper with its slot arenas, the per-frame point statistics and
-the map signature (bit-identical to the reference's for the same content).
-Insertion, culling and the covisibility queries are not ported yet.
+Port of `ucoslam_tpu/mapping/map.py`: the `MapState` arenas; the batch ops
+that mutate and query them (`op_*`, each returning a new MapState, as the
+reference's jitted ops do); and the host `Map` wrapper with its slot arenas,
+capacity growth, cached host mirror and signature (bit-identical to the
+reference's for the same content).
+
+Two reductions differ in method from the reference and not in result:
+`op_covis_matrix` multiplies the {0,1} incidence in float32 with TF32 off
+(exact below 2^24; the reference uses bf16 operands), and
+`op_update_point_stats` sums viewing directions per point in a fixed order
+(a sorted table, not a scatter-add, whose atomic order on the card is not
+fixed) and takes the descriptor maximum as unsigned on the int32 bits.
 """
 
 from __future__ import annotations
@@ -17,7 +25,14 @@ import torch
 
 from ucoslam_tpu_torch.config import Params
 from ucoslam_tpu_torch.mapping.arena import Arena
-from ucoslam_tpu_torch.mapping.frame import tensor_from_numpy
+from ucoslam_tpu_torch.mapping.frame import MAX_MARKERS_PER_FRAME, Frame, fetch_to_host, tensor_from_numpy
+
+# point status flags (reference mappoint.h flags BAD/STABLE/STEREO)
+FLAG_BAD = 1
+FLAG_STABLE = 2
+FLAG_STEREO = 4
+
+_INT32_MIN = -(2**31)  # xor with it maps unsigned order onto signed order
 
 
 @dataclass
@@ -66,6 +81,45 @@ class MapState:
     def N(self) -> int:
         return self.kf_xy.shape[1]
 
+    def replace(self, **kw) -> "MapState":
+        return dataclasses.replace(self, **kw)
+
+
+def empty_map_state(params: Params, device) -> MapState:
+    P, K, N, M = params.maxMapPoints, params.maxKeyFrames, params.maxKeyPointsPerFrame, params.maxMarkers
+    Mf = MAX_MARKERS_PER_FRAME
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    b = dict(dtype=torch.bool, device=device)
+    return MapState(
+        pt_pos=torch.zeros(P, 3, **f32),
+        pt_normal=torch.zeros(P, 3, **f32),
+        pt_desc=torch.zeros(P, 8, **i32),
+        pt_min_dist=torch.zeros(P, **f32),
+        pt_max_dist=torch.full((P,), 1e9, **f32),
+        pt_flags=torch.zeros(P, **i32),
+        pt_n_seen=torch.zeros(P, **i32),
+        pt_n_visible=torch.zeros(P, **i32),
+        pt_creation_kf=torch.zeros(P, **i32),
+        pt_active=torch.zeros(P, **b),
+        kf_pose=torch.eye(4, **f32).repeat(K, 1, 1),
+        kf_fseq=torch.full((K,), -1, **i32),
+        kf_active=torch.zeros(K, **b),
+        kf_xy=torch.zeros(K, N, 2, **f32),
+        kf_octave=torch.zeros(K, N, **i32),
+        kf_desc=torch.zeros(K, N, 8, **i32),
+        kf_depth=torch.zeros(K, N, **f32),
+        kf_kpt_valid=torch.zeros(K, N, **b),
+        kf_ids=torch.full((K, N), -1, **i32),
+        mk_id=torch.full((M,), -1, **i32),
+        mk_pose=torch.eye(4, **f32).repeat(M, 1, 1),
+        mk_pose_valid=torch.zeros(M, **b),
+        mk_size=torch.zeros(M, **f32),
+        mk_active=torch.zeros(M, **b),
+        kf_mk_slot=torch.full((K, Mf), -1, **i32),
+        kf_mk_corners=torch.zeros(K, Mf, 4, 2, **f32),
+    )
+
 
 def map_state_from_numpy(arrays: dict[str, np.ndarray], device) -> MapState:
     """MapState from numpy arrays keyed by field name: a checkpoint's
@@ -77,16 +131,374 @@ def map_state_from_numpy(arrays: dict[str, np.ndarray], device) -> MapState:
     return MapState(**{k: tensor_from_numpy(arrays[k], device) for k in names})
 
 
+def map_state_to_numpy(state: MapState) -> dict[str, np.ndarray]:
+    """MapState -> numpy arrays keyed by field name, descriptors as uint32
+    (the reference's dtype), so the reference reads what the port wrote."""
+    out = {}
+    for f in dataclasses.fields(MapState):
+        a = getattr(state, f.name).cpu().numpy()
+        out[f.name] = a.view(np.uint32) if f.name in ("pt_desc", "kf_desc") else a
+    return out
+
+
+# ----------------------------------------------------------------------
+# Batch ops over MapState (each returns a new MapState)
+# ----------------------------------------------------------------------
+
+
+def _set_rows(t: torch.Tensor, index, values) -> torch.Tensor:
+    out = t.clone()
+    out[index] = values
+    return out
+
+
+def op_add_keyframe(state: MapState, slot: int, frame: Frame) -> MapState:
+    """Write a frame into keyframe slot `slot`."""
+    return state.replace(
+        kf_pose=_set_rows(state.kf_pose, slot, frame.pose_f2g),
+        kf_fseq=_set_rows(state.kf_fseq, slot, int(frame.fseq)),
+        kf_active=_set_rows(state.kf_active, slot, True),
+        kf_xy=_set_rows(state.kf_xy, slot, frame.und_xy),
+        kf_octave=_set_rows(state.kf_octave, slot, frame.octave),
+        kf_desc=_set_rows(state.kf_desc, slot, frame.desc),
+        kf_depth=_set_rows(state.kf_depth, slot, frame.depth),
+        kf_kpt_valid=_set_rows(state.kf_kpt_valid, slot, frame.valid),
+        kf_ids=_set_rows(state.kf_ids, slot, frame.ids),
+    )
+
+
+def op_add_points(
+    state: MapState,
+    slots: torch.Tensor,  # (B,) int32 target slots (from the arena)
+    use: torch.Tensor,  # (B,) bool which rows are real
+    pos: torch.Tensor,  # (B, 3)
+    normal: torch.Tensor,  # (B, 3)
+    desc: torch.Tensor,  # (B, 8) int32 bits
+    min_dist: torch.Tensor,  # (B,)
+    max_dist: torch.Tensor,  # (B,)
+    flags: torch.Tensor,  # (B,) int32
+    creation_kf: int,
+) -> MapState:
+    """Batched point creation: the rows with use=True go to their slots
+    with seen/visible counts 1; the other rows write nothing."""
+    s = slots[use].long()
+    n = s.shape[0]
+    i32 = dict(dtype=torch.int32, device=s.device)
+    return state.replace(
+        pt_pos=_set_rows(state.pt_pos, s, pos[use]),
+        pt_normal=_set_rows(state.pt_normal, s, normal[use]),
+        pt_desc=_set_rows(state.pt_desc, s, desc[use]),
+        pt_min_dist=_set_rows(state.pt_min_dist, s, min_dist[use]),
+        pt_max_dist=_set_rows(state.pt_max_dist, s, max_dist[use]),
+        pt_flags=_set_rows(state.pt_flags, s, flags[use]),
+        pt_n_seen=_set_rows(state.pt_n_seen, s, torch.ones(n, **i32)),
+        pt_n_visible=_set_rows(state.pt_n_visible, s, torch.ones(n, **i32)),
+        pt_creation_kf=_set_rows(state.pt_creation_kf, s, torch.full((n,), creation_kf, **i32)),
+        pt_active=_set_rows(state.pt_active, s, True),
+    )
+
+
+def op_set_observations(state: MapState, kf_slot: int, kpt_idx: torch.Tensor, point_ids: torch.Tensor) -> MapState:
+    """Assign keyframe keypoints -> map points; kpt_idx -1 rows are ignored."""
+    use = kpt_idx >= 0
+    row = state.kf_ids[kf_slot].clone()
+    row[kpt_idx[use].long()] = point_ids[use].to(torch.int32)
+    return state.replace(kf_ids=_set_rows(state.kf_ids, kf_slot, row))
+
+
+def op_remove_points(state: MapState, remove_mask: torch.Tensor) -> MapState:
+    """Deactivate points and clear their observations everywhere."""
+    ids = state.kf_ids
+    dead = remove_mask[ids.clamp(min=0).long()] & (ids >= 0)
+    return state.replace(pt_active=state.pt_active & ~remove_mask, kf_ids=torch.where(dead, -1, ids))
+
+
+def op_remove_keyframes(state: MapState, remove_mask: torch.Tensor) -> MapState:
+    """Deactivate keyframes and drop their observations."""
+    return state.replace(
+        kf_active=state.kf_active & ~remove_mask,
+        kf_ids=torch.where(remove_mask[:, None], -1, state.kf_ids),
+        kf_kpt_valid=state.kf_kpt_valid & ~remove_mask[:, None],
+        kf_mk_slot=torch.where(remove_mask[:, None], -1, state.kf_mk_slot),
+    )
+
+
+def op_point_observation_counts(state: MapState) -> torch.Tensor:
+    """(P,) int32: observations of each point by active keyframes (a
+    keyframe observing a point twice counts twice)."""
+    ids = torch.where(state.kf_active[:, None] & (state.kf_ids >= 0), state.kf_ids, state.P)
+    counts = torch.bincount(ids.reshape(-1).long(), minlength=state.P + 1)
+    return counts[: state.P].to(torch.int32)
+
+
+def _incidence(state: MapState) -> torch.Tensor:
+    """(K, P) float32 {0, 1} observation incidence matrix."""
+    ids = torch.where(state.kf_active[:, None] & (state.kf_ids >= 0), state.kf_ids, state.P)
+    onehot = torch.zeros(state.K, state.P + 1, dtype=torch.float32, device=ids.device)
+    onehot.scatter_(1, ids.long(), 1.0)
+    return onehot[:, : state.P]
+
+
+def op_covis_matrix(state: MapState) -> torch.Tensor:
+    """(K, K) int32 covisibility weights = #points co-observed, zero on the
+    diagonal. A float32 incidence product (exact below 2^24; TF32 is off,
+    see slam/system.disable_tf32)."""
+    onehot = _incidence(state)
+    covis = (onehot @ onehot.T).to(torch.int32)
+    return covis * (1 - torch.eye(state.K, dtype=torch.int32, device=covis.device))
+
+
+def ordered_segment_sum(values: torch.Tensor, seg: torch.Tensor, n: int) -> torch.Tensor:
+    """Sum the rows of values (L, C) into n segments (seg (L,) in [0, n)) in
+    a fixed order: rows are laid out per segment in their input order and
+    each segment is reduced along one axis. The result is the same on every
+    run, where an atomic scatter-add's order is not fixed."""
+    dev = values.device
+    order = torch.argsort(seg, stable=True)
+    seg_sorted = seg[order]
+    counts = torch.bincount(seg, minlength=n)
+    starts = torch.cumsum(counts, 0) - counts
+    rank = torch.arange(seg.shape[0], device=dev) - starts[seg_sorted]
+    width = int(counts.max()) if seg.shape[0] else 0
+    table = torch.zeros(n, max(width, 1), values.shape[1], dtype=values.dtype, device=dev)
+    table[seg_sorted, rank] = values[order]
+    return table.sum(1)
+
+
+def op_update_point_stats(state: MapState, scale_factor: float, n_levels: int) -> MapState:
+    """Refresh per-point viewing normals, scale-invariance bounds and the
+    representative descriptor (the observation from the most recent
+    observing keyframe) from the current observation set."""
+    K, N, P = state.K, state.N, state.P
+    dev = state.pt_pos.device
+    ids = torch.where(
+        state.kf_active[:, None] & state.kf_kpt_valid & (state.kf_ids >= 0), state.kf_ids, P
+    )
+    flat_ids = ids.reshape(-1).long()
+    R = state.kf_pose[:, :3, :3]
+    t = state.kf_pose[:, :3, 3]
+    centers = -(R.transpose(-1, -2) @ t[..., None])[..., 0]  # (K, 3)
+    X = state.pt_pos[torch.where(flat_ids < P, flat_ids, 0)]  # (K*N, 3)
+    ray = X - centers.repeat_interleave(N, 0)
+    dist = torch.linalg.norm(ray, dim=-1).clamp(min=1e-9)
+    dirn = ray / dist[:, None]
+
+    obs = torch.nonzero(flat_ids < P)[:, 0]
+    sum_dir = ordered_segment_sum(dirn[obs], flat_ids[obs], P)
+    cnt = torch.bincount(flat_ids[obs], minlength=P).to(torch.float32)
+    normal = sum_dir / cnt[:, None].clamp(min=1.0)
+    nrm = torch.linalg.norm(normal, dim=-1, keepdim=True)
+    normal = torch.where(nrm > 1e-6, normal / nrm.clamp(min=1e-9), state.pt_normal)
+
+    log_sf = torch.log(torch.tensor(scale_factor, dtype=torch.float32, device=dev))
+    oct_flat = state.kf_octave.reshape(-1).to(torch.float32)
+    max_cand = dist * torch.exp(oct_flat * log_sf)
+    max_d = torch.full((P + 1,), -1e9, dtype=torch.float32, device=dev)
+    max_d = max_d.scatter_reduce(0, flat_ids, max_cand, reduce="amax")
+    levels_span = torch.exp((torch.tensor(float(n_levels), device=dev) - 1.0) * log_sf)
+    has_obs = cnt > 0
+    new_max = torch.where(has_obs, max_d[:P], state.pt_max_dist)
+    new_min = torch.where(has_obs, new_max / levels_span, state.pt_min_dist)
+
+    # representative descriptor: the observation from the most recent keyframe
+    fseq_flat = state.kf_fseq.repeat_interleave(N)
+    best_seq = torch.full((P + 1,), -1, dtype=torch.int32, device=dev)
+    best_seq = best_seq.scatter_reduce(0, flat_ids, fseq_flat, reduce="amax")
+    is_best = (fseq_flat == best_seq[flat_ids]) & (flat_ids < P)
+    tgt = torch.where(is_best, flat_ids, P)
+    # an unsigned maximum of the uint32 bits (one keyframe may hold a point
+    # twice after fusion): flip the sign bit, take the signed maximum, flip back
+    flipped = state.kf_desc.reshape(-1, 8) ^ _INT32_MIN
+    new_desc = torch.full((P + 1, 8), _INT32_MIN, dtype=torch.int32, device=dev)
+    new_desc = new_desc.scatter_reduce(0, tgt[:, None].expand(-1, 8), flipped, reduce="amax") ^ _INT32_MIN
+    new_desc = torch.where(has_obs[:, None], new_desc[:P], state.pt_desc)
+
+    act = state.pt_active
+    return state.replace(
+        pt_normal=torch.where(act[:, None], normal, state.pt_normal),
+        pt_max_dist=torch.where(act, new_max, state.pt_max_dist),
+        pt_min_dist=torch.where(act, new_min, state.pt_min_dist),
+        pt_desc=torch.where(act[:, None], new_desc, state.pt_desc),
+    )
+
+
+def op_scale_map(state: MapState, s: float) -> MapState:
+    """Scale the world (positions, translations, depths) by s."""
+    s = torch.tensor(s, dtype=torch.float32, device=state.pt_pos.device)
+    kf_pose = state.kf_pose.clone()
+    kf_pose[:, :3, 3] *= s
+    mk_pose = state.mk_pose.clone()
+    mk_pose[:, :3, 3] *= s
+    return state.replace(
+        pt_pos=state.pt_pos * s,
+        pt_min_dist=state.pt_min_dist * s,
+        pt_max_dist=state.pt_max_dist * s,
+        kf_pose=kf_pose,
+        kf_depth=state.kf_depth * s,
+        mk_pose=mk_pose,
+    )
+
+
+# ----------------------------------------------------------------------
+# Host wrapper
+# ----------------------------------------------------------------------
+
+
 class Map:
     """Host-side owner of a MapState plus the slot arenas."""
 
-    def __init__(self, params: Params, state: MapState):
+    def __init__(self, params: Params, state: MapState | None = None, device="cuda"):
         self.params = params
-        self.state = state
-        self.points = Arena(state.P)
-        self.keyframes = Arena(state.K)
-        self.markers = Arena(state.mk_id.shape[0])
+        self._host_cache: dict = {}
+        self.state = state if state is not None else empty_map_state(params, device)
+        self.points = Arena(self.state.P)
+        self.keyframes = Arena(self.state.K)
+        self.markers = Arena(self.state.mk_id.shape[0])
 
+    # -- host mirror: fetched fields are cached until the next state write
+    @property
+    def state(self) -> MapState:
+        return self._state
+
+    @state.setter
+    def state(self, v: MapState) -> None:
+        self._state = v
+        self._host_cache.clear()
+
+    @property
+    def device(self) -> torch.device:
+        return self._state.pt_pos.device
+
+    def h(self, *names: str):
+        """Cached host-numpy copies of state fields, the missing ones fetched
+        in one bundled transfer: `map.h('pt_active')` or
+        `a, b = map.h('pt_active', 'kf_pose')`."""
+        missing = [n for n in names if n not in self._host_cache]
+        if missing:
+            vals = fetch_to_host(*(getattr(self._state, n) for n in missing))
+            self._host_cache.update(zip(missing, vals))
+        if len(names) == 1:
+            return self._host_cache[names[0]]
+        return tuple(self._host_cache[n] for n in names)
+
+    # -- capacity growth ------------------------------------------------
+    def grow_points(self, new_P: int | None = None) -> int:
+        P = self.state.P
+        new_P = new_P or 2 * P
+        if new_P <= P:
+            return P
+        st = self.state
+
+        def pad(a, fill=0):
+            return torch.cat([a, a.new_full((new_P - P,) + a.shape[1:], fill)])
+
+        self.state = st.replace(
+            pt_pos=pad(st.pt_pos),
+            pt_normal=pad(st.pt_normal),
+            pt_desc=pad(st.pt_desc),
+            pt_min_dist=pad(st.pt_min_dist),
+            pt_max_dist=pad(st.pt_max_dist, fill=1e9),
+            pt_flags=pad(st.pt_flags),
+            pt_n_seen=pad(st.pt_n_seen),
+            pt_n_visible=pad(st.pt_n_visible),
+            pt_creation_kf=pad(st.pt_creation_kf),
+            pt_active=pad(st.pt_active, fill=False),
+        )
+        self.points.grow(new_P)
+        self.params = self.params.replace(maxMapPoints=new_P)
+        return new_P
+
+    def grow_keyframes(self, new_K: int | None = None) -> int:
+        K = self.state.K
+        new_K = new_K or 2 * K
+        if new_K <= K:
+            return K
+        st = self.state
+
+        def pad(a, fill=0):
+            return torch.cat([a, a.new_full((new_K - K,) + a.shape[1:], fill)])
+
+        eye_tail = torch.eye(4, dtype=torch.float32, device=self.device).repeat(new_K - K, 1, 1)
+        self.state = st.replace(
+            kf_pose=torch.cat([st.kf_pose, eye_tail]),
+            kf_fseq=pad(st.kf_fseq, fill=-1),
+            kf_active=pad(st.kf_active, fill=False),
+            kf_xy=pad(st.kf_xy),
+            kf_octave=pad(st.kf_octave),
+            kf_desc=pad(st.kf_desc),
+            kf_depth=pad(st.kf_depth),
+            kf_kpt_valid=pad(st.kf_kpt_valid, fill=False),
+            kf_ids=pad(st.kf_ids, fill=-1),
+            kf_mk_slot=pad(st.kf_mk_slot, fill=-1),
+            kf_mk_corners=pad(st.kf_mk_corners),
+        )
+        self.keyframes.grow(new_K)
+        self.params = self.params.replace(maxKeyFrames=new_K)
+        return new_K
+
+    # -- keyframes ------------------------------------------------------
+    def add_keyframe(self, frame: Frame) -> int:
+        slot = self.keyframes.alloc()
+        self.state = op_add_keyframe(self.state, slot, frame)
+        return slot
+
+    def remove_keyframes(self, slots) -> None:
+        mask = np.zeros(self.state.K, bool)
+        mask[np.asarray(slots, int)] = True
+        self.state = op_remove_keyframes(self.state, torch.from_numpy(mask).to(self.device))
+        self.keyframes.free(slots)
+
+    # -- points ---------------------------------------------------------
+    def add_points(self, pos, normal, desc, min_dist, max_dist, flags, creation_kf: int, use=None) -> np.ndarray:
+        """Allocate + write up to B points (numpy or tensors); returns slot
+        ids (-1 for unused rows)."""
+        b = len(pos)
+        use = np.ones(b, bool) if use is None else np.asarray(use, bool)
+        slots = np.full(b, -1, np.int32)
+        slots[use] = self.points.alloc_many(int(use.sum()))
+        dev = self.device
+
+        def t(a, dtype):
+            if isinstance(a, torch.Tensor):
+                return a.to(dev, dtype)
+            a = np.asarray(a)
+            if a.dtype == np.uint32:
+                a = a.view(np.int32)
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+        self.state = op_add_points(
+            self.state,
+            t(np.where(use, slots, 0).astype(np.int32), torch.int32),
+            t(use, torch.bool),
+            t(pos, torch.float32),
+            t(normal, torch.float32),
+            t(desc, torch.int32),
+            t(min_dist, torch.float32),
+            t(max_dist, torch.float32),
+            t(flags, torch.int32),
+            int(creation_kf),
+        )
+        return slots
+
+    def remove_points(self, slots_or_mask) -> None:
+        arr = np.asarray(slots_or_mask)
+        if arr.dtype == bool:
+            mask = arr
+        else:
+            mask = np.zeros(self.state.P, bool)
+            mask[arr.astype(int)] = True
+        self.state = op_remove_points(self.state, torch.from_numpy(np.ascontiguousarray(mask)).to(self.device))
+        self.points.free(np.nonzero(mask)[0])
+
+    def set_observations(self, kf_slot: int, kpt_idx, point_ids) -> None:
+        dev = self.device
+        self.state = op_set_observations(
+            self.state, kf_slot,
+            torch.as_tensor(np.asarray(kpt_idx, np.int32), device=dev),
+            torch.as_tensor(np.asarray(point_ids, np.int32), device=dev),
+        )
+
+    # -- queries --------------------------------------------------------
     @property
     def n_points(self) -> int:
         return self.points.n_active
@@ -95,19 +507,59 @@ class Map:
     def n_keyframes(self) -> int:
         return self.keyframes.n_active
 
+    def covis_matrix(self) -> np.ndarray:
+        if "covis_matrix" not in self._host_cache:
+            self._host_cache["covis_matrix"] = op_covis_matrix(self.state).cpu().numpy()
+        return self._host_cache["covis_matrix"]
+
+    def point_observation_counts(self) -> np.ndarray:
+        if "point_obs_counts" not in self._host_cache:
+            self._host_cache["point_obs_counts"] = op_point_observation_counts(self.state).cpu().numpy()
+        return self._host_cache["point_obs_counts"]
+
     def bump_point_stats(self, vis_mask: torch.Tensor, seen_mask: torch.Tensor) -> None:
-        """Increment the per-point visible/seen counters (in place)."""
-        self.state.pt_n_visible += vis_mask.to(torch.int32)
-        self.state.pt_n_seen += seen_mask.to(torch.int32)
+        """Increment the per-point visible/seen counters. Runs every tracked
+        frame and touches only the two counters, so only they leave the
+        host mirror."""
+        self._state = self._state.replace(
+            pt_n_visible=self._state.pt_n_visible + vis_mask.to(torch.int32),
+            pt_n_seen=self._state.pt_n_seen + seen_mask.to(torch.int32),
+        )
+        self._host_cache.pop("pt_n_seen", None)
+        self._host_cache.pop("pt_n_visible", None)
+
+    def scale(self, s: float) -> None:
+        self.state = op_scale_map(self.state, s)
+
+    def frame_median_depth(self, kf_slot: int) -> float:
+        """Median depth of the points a keyframe observes."""
+        kf_ids, kf_pose, pt_pos = self.h("kf_ids", "kf_pose", "pt_pos")
+        ids = kf_ids[kf_slot]
+        obs = ids[ids >= 0]
+        if len(obs) == 0:
+            return 1.0
+        T = kf_pose[kf_slot]
+        z = (pt_pos[obs] @ T[:3, :3].T + T[:3, 3])[:, 2]
+        return float(np.median(z))
+
+    # -- integrity ------------------------------------------------------
+    def check_consistency(self) -> None:
+        """Invariant sweep: arenas agree with the state, and no active
+        keyframe observes an inactive point."""
+        ids, kf_active, pt_active = self.h("kf_ids", "kf_active", "pt_active")
+        assert (kf_active == self.keyframes.active).all(), "kf arena desync"
+        assert (pt_active == self.points.active).all(), "pt arena desync"
+        obs = ids[kf_active]
+        obs = obs[obs >= 0]
+        if len(obs):
+            assert pt_active[obs].all(), "observation of inactive point"
 
     def signature(self) -> int:
         """Deterministic content hash; equal to the reference's signature of
         the same map (same fields, dtypes, quantization and order)."""
         h = hashlib.blake2b(digest_size=8)
-        st = self.state
-        fields = (st.pt_pos, st.pt_active, st.kf_pose, st.kf_active, st.kf_ids, st.mk_id, st.mk_pose)
-        for t, quant in zip(fields, (1e4, None, 1e4, None, None, None, 1e4)):
-            a = t.cpu().numpy()
+        fields = self.h("pt_pos", "pt_active", "kf_pose", "kf_active", "kf_ids", "mk_id", "mk_pose")
+        for a, quant in zip(fields, (1e4, None, 1e4, None, None, None, 1e4)):
             if quant is not None:
                 a = np.round(a.astype(np.float64) * quant).astype(np.int64)
             h.update(a.tobytes())

@@ -8,6 +8,8 @@ whatever the matmul precision setting.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 DESC_WORDS = 8  # 8 x 32 bits = 256 bits
@@ -25,11 +27,12 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_matrix(desc_a: torch.Tensor, desc_b: torch.Tensor) -> torch.Tensor:
-    """(N, 8) x (M, 8) int32 descriptors -> (N, M) int32 Hamming distances.
-    One word at a time, so no (N, M, 8) intermediate exists."""
-    dist = popcount32(desc_a[:, None, 0] ^ desc_b[None, :, 0])
+    """(..., N, 8) x (..., M, 8) int32 descriptors -> (..., N, M) int32
+    Hamming distances (leading dims broadcast). One word at a time, so no
+    (N, M, 8) intermediate exists."""
+    dist = popcount32(desc_a[..., :, None, 0] ^ desc_b[..., None, :, 0])
     for w in range(1, DESC_WORDS):
-        dist += popcount32(desc_a[:, None, w] ^ desc_b[None, :, w])
+        dist += popcount32(desc_a[..., :, None, w] ^ desc_b[..., None, :, w])
     return dist
 
 
@@ -39,22 +42,23 @@ def match_best2(
     valid_cols: torch.Tensor | None = None,
     extra_mask: torch.Tensor | None = None,
 ):
-    """Best and second-best match per row of an (N, M) int32 distance matrix.
+    """Best and second-best match per row of an (..., N, M) int32 distance
+    matrix.
 
-    Masked entries become INVALID_DIST. Returns (best_idx (N,) int64, best
-    (N,) int32, second (N,) int32); the best index is the lowest column among
-    equal minima (torch.argmin returns the first minimum) and the second best
-    is the runner-up at a different column.
+    Masked entries become INVALID_DIST. Returns (best_idx (..., N) int64,
+    best (..., N) int32, second (..., N) int32); the best index is the lowest
+    column among equal minima (torch.argmin returns the first minimum) and
+    the second best is the runner-up at a different column.
     """
     d = dist
     if valid_cols is not None:
-        d = torch.where(valid_cols[None, :], d, INVALID_DIST)
+        d = torch.where(valid_cols[..., None, :], d, INVALID_DIST)
     if extra_mask is not None:
         d = torch.where(extra_mask, d, INVALID_DIST)
-    best_idx = torch.argmin(d, dim=1)
-    best = torch.gather(d, 1, best_idx[:, None])[:, 0]
-    cols = torch.arange(d.shape[1], device=d.device)
-    second = torch.where(cols[None, :] == best_idx[:, None], INVALID_DIST, d).amin(1)
+    best_idx = torch.argmin(d, dim=-1)
+    best = torch.gather(d, -1, best_idx[..., None])[..., 0]
+    cols = torch.arange(d.shape[-1], device=d.device)
+    second = torch.where(cols == best_idx[..., None], INVALID_DIST, d).amin(-1)
     if valid_rows is not None:
         best = torch.where(valid_rows, best, INVALID_DIST)
         second = torch.where(valid_rows, second, INVALID_DIST)
@@ -65,17 +69,20 @@ def filter_ambiguous_train_sized(
     best_idx: torch.Tensor, best_dist: torch.Tensor, num_cols: int
 ) -> torch.Tensor:
     """Keep, per train column, only the query row with the smallest distance
-    (lowest row on ties). Returns a bool keep-mask over rows."""
+    (lowest row on ties). Returns a bool keep-mask over rows; leading dims
+    of (..., N) inputs are independent problems."""
     dev = best_idx.device
-    idx = best_idx.long()
-    dist = best_dist.to(torch.int32)
-    col_min = torch.full((num_cols,), INVALID_DIST, dtype=torch.int32, device=dev)
+    lead, n = best_idx.shape[:-1], best_idx.shape[-1]
+    n_problems = math.prod(lead)
+    offset = (torch.arange(n_problems, device=dev) * num_cols).reshape(lead + (1,))
+    idx = (best_idx.long() + offset).reshape(-1)
+    dist = best_dist.to(torch.int32).reshape(-1)
+    col_min = torch.full((n_problems * num_cols,), INVALID_DIST, dtype=torch.int32, device=dev)
     col_min = col_min.scatter_reduce(0, idx, dist, reduce="amin")
     is_min = dist == col_min[idx]
-    n = idx.shape[0]
-    rows = torch.arange(n, dtype=torch.int32, device=dev)
-    row_of_min = torch.full((num_cols,), n, dtype=torch.int32, device=dev)
+    rows = torch.arange(n, dtype=torch.int32, device=dev).repeat(n_problems)
+    row_of_min = torch.full((n_problems * num_cols,), n, dtype=torch.int32, device=dev)
     row_of_min = row_of_min.scatter_reduce(
         0, idx, torch.where(is_min, rows, n), reduce="amin"
     )
-    return is_min & (row_of_min[idx] == rows)
+    return (is_min & (row_of_min[idx] == rows)).reshape(best_idx.shape)

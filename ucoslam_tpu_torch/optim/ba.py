@@ -1,0 +1,448 @@
+"""Schur-complement Levenberg-Marquardt bundle adjustment (dense branch).
+
+Port of the keypoint path of `ucoslam_tpu/optim/ba.py`: SE3 keyframe
+vertices, XYZ point vertices marginalized by the Schur complement, mono 2D
+edges with information 1/sigma^2 (plus a masked stereo disparity row),
+two stages of fixed LM iterations (Huber with delta^2 = chi2 first, then
+the outliers demoted and the kernel dropped), adaptive damping, and the
+bad-association sweep. The reduced camera system is assembled as one
+matrix product `GY @ GA.T` and solved densely (`torch.linalg.solve`), as
+the reference does for small windows. Every per-camera reduction is a
+gather through the static camera->observation table and a sum, so the
+card gives the same result on every run.
+
+Not ported (each raises NotImplementedError naming its ROADMAP item):
+marker vertices and planar edges, the matrix-free CG solve and the
+point-major solver the reference routes windows of >= 128 keyframe
+slots to.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ucoslam_tpu_torch.config import CHI2_2D, CHI2_3D
+from ucoslam_tpu_torch.geometry.camera import CameraParams
+from ucoslam_tpu_torch.geometry.se3 import _hat, se3_exp
+from ucoslam_tpu_torch.mapping.frame import fetch_to_host
+from ucoslam_tpu_torch.mapping.map import Map
+
+#: keyframe-slot bucket of a problem (the reference's K quantum): the
+#: dense/point-major rule sees the same V as the reference
+K_BUCKET = 16
+
+
+@dataclass
+class BAProblem:
+    """Keypoint-only BA problem (K padded to the bucket; masks define the
+    live part). Index tensors are int64."""
+
+    cam_pose: torch.Tensor  # (K, 4, 4) pose_f2g
+    cam_fixed: torch.Tensor  # (K,) bool, held constant
+    cam_valid: torch.Tensor  # (K,) bool
+    pt_pos: torch.Tensor  # (P, 3)
+    pt_valid: torch.Tensor  # (P,) bool
+    obs_cam: torch.Tensor  # (O,) index into the cam arrays
+    obs_pt: torch.Tensor  # (O,) index into the pt arrays
+    obs_uv: torch.Tensor  # (O, 2)
+    obs_sigma2: torch.Tensor  # (O,)
+    obs_depth: torch.Tensor  # (O,) stereo depth measurement (0 = mono)
+    obs_valid: torch.Tensor  # (O,) bool
+    pt_obs: torch.Tensor  # (P, MO) obs index per point (-1 pad)
+    bf: float  # baseline * fx
+    cam_obs: torch.Tensor  # (K, CO) obs index per camera (-1 pad)
+
+
+@dataclass
+class BAResult:
+    cam_pose: torch.Tensor
+    pt_pos: torch.Tensor
+    obs_chi2: torch.Tensor  # (O,) final per-observation chi2
+    obs_bad: torch.Tensor  # (O,) bool, bad association (chi2 / negative depth)
+    cost_history: torch.Tensor  # (stages * iters,)
+
+
+def _residual_jac(problem: BAProblem, cam_pose, pt_pos, cam: CameraParams):
+    """Per-observation 3-row residual (u, v, and the stereo u_r = u - bf/z
+    masked to zero for mono rows) and Jacobians.
+    -> r (O, 3), Jc (O, 3, 6), Jp (O, 3, 3), q (O, 3), row_mask (O, 3)."""
+    T = cam_pose[problem.obs_cam]
+    X = pt_pos[problem.obs_pt]
+    R = T[:, :3, :3]
+    t = T[:, :3, 3]
+    q = (R @ X[:, :, None])[:, :, 0] + t
+    z = q[:, 2].clamp(min=1e-6)
+    inv_z = 1.0 / z
+    u_hat = cam.fx * q[:, 0] * inv_z + cam.cx
+    v_hat = cam.fy * q[:, 1] * inv_z + cam.cy
+    stereo = problem.obs_depth > 0
+    bf = problem.bf
+    ur_obs = problem.obs_uv[:, 0] - bf / problem.obs_depth.clamp(min=1e-6)
+    ur_hat = u_hat - bf * inv_z
+    r = torch.stack(
+        [u_hat - problem.obs_uv[:, 0], v_hat - problem.obs_uv[:, 1], torch.where(stereo, ur_hat - ur_obs, 0.0)],
+        -1,
+    )
+    zero = torch.zeros_like(inv_z)
+    du_dq = torch.stack([cam.fx * inv_z, zero, -cam.fx * q[:, 0] * inv_z**2], -1)
+    dv_dq = torch.stack([zero, cam.fy * inv_z, -cam.fy * q[:, 1] * inv_z**2], -1)
+    dur_dq = du_dq + torch.stack([zero, zero, bf * inv_z**2], -1)
+    J_proj = torch.stack([du_dq, dv_dq, dur_dq], -2)  # (O, 3, 3)
+    eye = torch.eye(3, dtype=q.dtype, device=q.device).expand(q.shape[0], 3, 3)
+    J_pose = torch.cat([eye, -_hat(q)], -1)  # (O, 3, 6)
+    one = torch.ones_like(stereo)
+    row_mask = torch.stack([one, one, stereo], -1).to(torch.float32)
+    return r, J_proj @ J_pose, J_proj @ R, q, row_mask
+
+
+def _inv3x3(M: torch.Tensor) -> torch.Tensor:
+    """Batched closed-form 3x3 inverse."""
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = (a * A + b * B + c * C)[..., None, None]
+    adj = torch.stack(
+        [
+            torch.stack([A, -(b * i - c * h), b * f - c * e], -1),
+            torch.stack([B, a * i - c * g, -(a * f - c * d)], -1),
+            torch.stack([C, -(a * h - b * g), a * e - b * d], -1),
+        ],
+        -2,
+    )
+    return adj / torch.where(det.abs() < 1e-12, 1e-12, det)
+
+
+def _chi2_of(problem: BAProblem, cam_pose, pt_pos, cam):
+    r, _, _, q, row_mask = _residual_jac(problem, cam_pose, pt_pos, cam)
+    return (r * r * row_mask).sum(-1) / problem.obs_sigma2.clamp(min=1e-9), q
+
+
+def _delta2(problem: BAProblem) -> torch.Tensor:
+    return torch.where(problem.obs_depth > 0, CHI2_3D, CHI2_2D)
+
+
+def _total_cost(problem: BAProblem, cam_pose, pt_pos, cam, active, robust: bool):
+    """LM acceptance cost: Huber in stage 0, quadratic after."""
+    c2, _ = _chi2_of(problem, cam_pose, pt_pos, cam)
+    if robust:
+        delta2 = _delta2(problem)
+        rho = torch.where(c2 <= delta2, c2, 2.0 * torch.sqrt(delta2 * c2.clamp(min=1e-12)) - delta2)
+    else:
+        rho = c2
+    return torch.where(active, rho, 0.0).sum()
+
+
+def _pad_row(x: torch.Tensor) -> torch.Tensor:
+    """x with one zero row appended (the target of the -1 pads)."""
+    return torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
+
+
+def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, cam_pose, pt_pos, lam, cost_prev):
+    K = V = cam_pose.shape[0]
+    P = pt_pos.shape[0]
+    O = problem.obs_cam.shape[0]
+    dev = cam_pose.device
+    r, Jc, Jp, q, row_mask = _residual_jac(problem, cam_pose, pt_pos, cam)
+    c2 = (r * r * row_mask).sum(-1) / problem.obs_sigma2.clamp(min=1e-9)
+    if robust:
+        w = w_info * torch.clamp(torch.sqrt(_delta2(problem) / c2.clamp(min=1e-12)), max=1.0)
+    else:
+        w = w_info
+    Jc = Jc * row_mask[:, :, None]
+    Jp = Jp * row_mask[:, :, None]
+
+    # per-point blocks through the point->observation table (a gather)
+    A = torch.einsum("oij,oik,o->ojk", Jc, Jp, w)  # (O, 6, 3)
+    tbl = torch.where(problem.pt_obs >= 0, problem.pt_obs, O)  # (P, MO)
+    wL = _pad_row(w)[tbl]
+    JpL = _pad_row(Jp)[tbl]  # (P, MO, 3, 3)
+    rL = _pad_row(r)[tbl]
+    A_list = _pad_row(A)[tbl]  # (P, MO, 6, 3)
+    cam_list = torch.cat([problem.obs_cam, problem.obs_cam.new_full((1,), V)])[tbl]  # (P, MO)
+    Hpp = torch.einsum("pmij,pmik,pm->pjk", JpL, JpL, wL)
+    bp = torch.einsum("pmij,pmi,pm->pj", JpL, rL, wL)
+
+    # per-camera blocks through the camera->observation table (a gather)
+    co = torch.where(problem.cam_obs >= 0, problem.cam_obs, O)
+
+    def cam_reduce(contrib):
+        return _pad_row(contrib)[co].sum(1)
+
+    Hv = cam_reduce(torch.einsum("oij,oik,o->ojk", Jc, Jc, w))  # (V, 6, 6)
+    bv = cam_reduce(torch.einsum("oij,oi,o->oj", Jc, r, w))  # (V, 6)
+
+    eye3 = torch.eye(3, device=dev)
+    eye6 = torch.eye(6, device=dev)
+    Hpp_d = Hpp + lam * eye3 * torch.clamp(Hpp.diagonal(dim1=-2, dim2=-1).sum(-1)[:, None, None] / 3.0, min=1.0)
+    Hpp_inv = torch.where(problem.pt_valid[:, None, None], _inv3x3(Hpp_d), 0.0)
+
+    Y = A @ Hpp_inv[problem.obs_pt]  # (O, 6, 3)
+    bcorr_o = torch.einsum("oij,oj->oi", Y, bp[problem.obs_pt])  # (O, 6)
+
+    # Schur complement as one matrix product of the camera-contracted tables
+    Y_list = torch.einsum("pmij,pjk->pmik", A_list, Hpp_inv)  # (P, MO, 6, 3)
+    U = torch.nn.functional.one_hot(cam_list, V + 1).to(torch.float32)[..., :V]
+    GY = torch.einsum("pmc,pmij->cipj", U, Y_list).reshape(V * 6, P * 3)
+    GA = torch.einsum("pmc,pmij->cipj", U, A_list).reshape(V * 6, P * 3)
+    S = -(GY @ GA.T).reshape(V, 6, V, 6).permute(0, 2, 1, 3)
+    b_corr = -cam_reduce(bcorr_o)
+
+    HvD = Hv + lam * eye6 * torch.clamp(Hv.diagonal(dim1=-2, dim2=-1).sum(-1)[:, None, None] / 6.0, min=1.0)
+    b_f = torch.where(free[:, None], bv + b_corr, 0.0)
+    diag = torch.arange(V, device=dev)
+    S = S.clone()
+    S[diag, diag] += HvD
+    # fixed / invalid vertices: identity rows, zero right-hand side
+    Sf = torch.where(free[:, None, None, None] & free[None, :, None, None], S, 0.0)
+    Sf[diag, diag] += torch.where(free, 0.0, 1.0)[:, None, None] * eye6
+    S_full = Sf.permute(0, 2, 1, 3).reshape(6 * V, 6 * V)
+    delta_v = torch.linalg.solve(
+        S_full + 1e-8 * torch.eye(6 * V, device=dev), b_f.reshape(-1)
+    ).reshape(V, 6)
+    delta_v = torch.where(free[:, None], delta_v, 0.0)
+
+    # back-substitute the points through the same table
+    dcL = _pad_row(delta_v)[cam_list]  # (P, MO, 6)
+    t_contrib = torch.einsum("pmij,pmi->pj", A_list, dcL)
+    delta_p = torch.einsum("pij,pj->pi", Hpp_inv, bp - t_contrib)
+    delta_p = torch.where(problem.pt_valid[:, None], delta_p, 0.0)
+
+    new_cam = torch.where(free[:K, None, None], se3_exp(-delta_v[:K]) @ cam_pose, cam_pose)
+    new_pt = pt_pos - delta_p
+    new_cost = _total_cost(problem, new_cam, new_pt, cam, active, robust)
+    improved = new_cost < cost_prev
+    cam_pose = torch.where(improved, new_cam, cam_pose)
+    pt_pos = torch.where(improved, new_pt, pt_pos)
+    cost = torch.where(improved, new_cost, cost_prev)
+    lam = torch.where(improved, lam * 0.5, lam * 8.0).clamp(1e-7, 1e6)
+    return cam_pose, pt_pos, lam, cost
+
+
+def _staged_lm(problem: BAProblem, cam: CameraParams, iters: int, stages: int):
+    """`stages` rounds of `iters` LM steps, outliers demoted between them.
+    -> (cam_pose, pt_pos, costs, obs_chi2, obs_bad); no host sync inside."""
+    free = problem.cam_valid & ~problem.cam_fixed
+    cam_pose, pt_pos = problem.cam_pose, problem.pt_pos
+    active = problem.obs_valid
+    all_costs = []
+    for stage in range(stages):
+        robust = stage == 0
+        w_info = active.to(torch.float32) / problem.obs_sigma2.clamp(min=1e-9)
+        cost = _total_cost(problem, cam_pose, pt_pos, cam, active, robust)
+        lam = torch.tensor(1e-4, dtype=torch.float32, device=cam_pose.device)
+        for _ in range(iters):
+            cam_pose, pt_pos, lam, cost = _lm_step(
+                problem, cam, free, w_info, active, robust, cam_pose, pt_pos, lam, cost
+            )
+            all_costs.append(cost)
+        if stage < stages - 1:
+            c2_s, q_s = _chi2_of(problem, cam_pose, pt_pos, cam)
+            active = problem.obs_valid & (c2_s <= _delta2(problem)) & (q_s[:, 2] > 0)
+    c2, q = _chi2_of(problem, cam_pose, pt_pos, cam)
+    bad = problem.obs_valid & ((c2 > _delta2(problem)) | (q[:, 2] <= 0))
+    return cam_pose, pt_pos, torch.stack(all_costs), c2, bad
+
+
+def ba_solve(problem: BAProblem, cam: CameraParams, iters: int = 20, stages: int = 2, solver: str = "auto") -> BAResult:
+    """LM with point marginalization: the reference's dense Schur solve."""
+    V = problem.cam_pose.shape[0]
+    if solver == "cg" or (solver == "auto" and V >= 128):
+        raise NotImplementedError(
+            f"BA over {V} keyframe slots takes the reference's point-major or CG solver, which is "
+            "not ported yet (ROADMAP.md, Queue 1 item 6: global BA at scale)"
+        )
+    cam_pose, pt_pos, costs, c2, bad = _staged_lm(problem, cam, iters, stages)
+    return BAResult(cam_pose=cam_pose, pt_pos=pt_pos, obs_chi2=c2, obs_bad=bad, cost_history=costs)
+
+
+# ----------------------------------------------------------------------
+# Host-side problem construction from a Map
+# ----------------------------------------------------------------------
+
+
+def _build_cam_obs(obs_cam: np.ndarray, K: int) -> np.ndarray:
+    """(K, CO) int32 camera->obs gather table (-1 pad), CO bucketed to 256."""
+    pos = np.nonzero((obs_cam >= 0) & (obs_cam < K))[0]
+    cams_all = obs_cam[pos]
+    counts = np.bincount(cams_all, minlength=K) if len(cams_all) else np.zeros(K, int)
+    co = max(256, -(-int(counts.max() if len(counts) else 1) // 256) * 256)
+    tbl = np.full((K, co), -1, np.int32)
+    order = np.argsort(cams_all, kind="stable")
+    cams = cams_all[order]
+    if len(cams):
+        tbl[cams, _rank_in_runs(cams)] = pos[order]
+    return tbl
+
+
+def _rank_in_runs(sorted_keys: np.ndarray) -> np.ndarray:
+    """Position of each element within its run of equal keys."""
+    first = np.concatenate([[True], sorted_keys[1:] != sorted_keys[:-1]])
+    start = np.maximum.accumulate(np.where(first, np.arange(len(sorted_keys)), 0))
+    return np.arange(len(sorted_keys)) - start
+
+
+def build_ba_problem(
+    world_map: Map,
+    cam: CameraParams,
+    used_kfs: np.ndarray | None = None,
+    fixed_kfs: np.ndarray | None = None,
+    fix_first: bool = True,
+    max_obs_per_point: int = 16,
+    min_obs: int = 2,
+) -> tuple[BAProblem, np.ndarray, np.ndarray]:
+    """Flatten a Map (or a keyframe window) into a BAProblem.
+
+    used_kfs: keyframe slots to optimize (None = all active); fixed_kfs:
+    slots held fixed (the window's boundary). Returns (problem, kf_slots,
+    pt_slots), the slot arrays mapping problem indices to the Map arenas.
+    """
+    if world_map.params.detectMarkers:
+        raise NotImplementedError("marker vertices in BA are not ported yet (ROADMAP.md, Queue 1 item 3: markers)")
+    st = world_map.state
+    dev = world_map.device
+    kf_active = world_map.h("kf_active")
+    if used_kfs is None:
+        used_kfs = np.nonzero(kf_active)[0]
+    used_kfs = np.asarray(sorted(int(s) for s in used_kfs), np.int32)
+    fixed_set = set(int(s) for s in (fixed_kfs if fixed_kfs is not None else []))
+    if fix_first and len(used_kfs) and not fixed_set:
+        fixed_set = {int(used_kfs[0])}
+    all_kfs = np.asarray(sorted(set(used_kfs.tolist()) | fixed_set), np.int32)
+
+    # only the window keyframes' rows leave the device, in one transfer
+    rows = torch.from_numpy(all_kfs.astype(np.int64)).to(dev)
+    kf_ids, kf_depth_all, kf_xy, kf_oct, kf_pose_w = fetch_to_host(
+        st.kf_ids[rows], st.kf_depth[rows], st.kf_xy[rows], st.kf_octave[rows], st.kf_pose[rows]
+    )
+
+    # observations of points by the window keyframes
+    obs_cam, obs_kpt = np.nonzero(kf_ids >= 0)
+    obs_cam = obs_cam.astype(np.int32)
+    obs_pt_slot = kf_ids[obs_cam, obs_kpt]
+
+    # points: observed >= min_obs times within the window (or stereo)
+    depth_per_obs = kf_depth_all[obs_cam, obs_kpt]
+    uniq, counts = np.unique(obs_pt_slot, return_counts=True)
+    stereo = np.isin(uniq, obs_pt_slot[depth_per_obs > 0])
+    pt_slots = uniq[(counts >= min_obs) | stereo].astype(np.int32)
+    pt_index = np.full(st.P, -1, np.int32)
+    pt_index[pt_slots] = np.arange(len(pt_slots))
+
+    keep = pt_index[obs_pt_slot] >= 0
+    obs_cam, obs_kpt = obs_cam[keep], obs_kpt[keep]
+    obs_pt = pt_index[obs_pt_slot[keep]]
+
+    # cap the observations per point (keep the earliest keyframes)
+    order = np.lexsort((obs_cam, obs_pt))
+    obs_cam, obs_pt, obs_kpt = obs_cam[order], obs_pt[order], obs_kpt[order]
+    rank = _rank_in_runs(obs_pt) if len(obs_pt) else np.zeros(0, np.int64)
+    keep = rank < max_obs_per_point
+    obs_cam, obs_pt, obs_kpt, rank = obs_cam[keep], obs_pt[keep], obs_kpt[keep], rank[keep]
+
+    O = len(obs_cam)
+    sf = world_map.params.scaleFactor
+    obs_uv = kf_xy[obs_cam, obs_kpt]
+    obs_sigma2 = sf ** (2.0 * kf_oct[obs_cam, obs_kpt])
+    obs_depth = kf_depth_all[obs_cam, obs_kpt]
+    pt_obs = np.full((len(pt_slots), max_obs_per_point), -1, np.int32)
+    pt_obs[obs_pt, rank] = np.arange(O)
+
+    # K padded to its bucket (padded cameras invalid and fixed)
+    Kb = max(K_BUCKET, -(-len(all_kfs) // K_BUCKET) * K_BUCKET)
+    cam_pose = np.tile(np.eye(4, dtype=np.float32), (Kb, 1, 1))
+    cam_pose[: len(all_kfs)] = kf_pose_w
+    cam_fixed = np.ones(Kb, bool)
+    cam_fixed[: len(all_kfs)] = [int(s) in fixed_set for s in all_kfs]
+    cam_valid = np.zeros(Kb, bool)
+    cam_valid[: len(all_kfs)] = True
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    problem = BAProblem(
+        cam_pose=t(cam_pose, torch.float32),
+        cam_fixed=t(cam_fixed, torch.bool),
+        cam_valid=t(cam_valid, torch.bool),
+        pt_pos=t(world_map.h("pt_pos")[pt_slots], torch.float32),
+        pt_valid=torch.ones(len(pt_slots), dtype=torch.bool, device=dev),
+        obs_cam=t(obs_cam, torch.int64),
+        obs_pt=t(obs_pt, torch.int64),
+        obs_uv=t(obs_uv.astype(np.float32), torch.float32),
+        obs_sigma2=t(obs_sigma2.astype(np.float32), torch.float32),
+        obs_depth=t(obs_depth.astype(np.float32), torch.float32),
+        obs_valid=torch.ones(O, dtype=torch.bool, device=dev),
+        pt_obs=t(pt_obs, torch.int64),
+        bf=cam.bf,
+        cam_obs=t(_build_cam_obs(obs_cam, Kb), torch.int64),
+    )
+    return problem, all_kfs, pt_slots
+
+
+def apply_ba_result(
+    world_map: Map, result: BAResult, kf_slots: np.ndarray, pt_slots: np.ndarray,
+    problem: BAProblem, remove_bad: bool = True,
+) -> int:
+    """Write the optimized poses and points back into the map and drop the
+    bad associations. Returns the number of associations removed."""
+    st = world_map.state
+    dev = world_map.device
+    kf_idx = torch.from_numpy(np.asarray(kf_slots, np.int64)).to(dev)
+    pt_idx = torch.from_numpy(np.asarray(pt_slots, np.int64)).to(dev)
+    kf_pose = st.kf_pose.clone()
+    kf_pose[kf_idx] = result.cam_pose[: len(kf_slots)]
+    pt_pos = st.pt_pos.clone()
+    pt_pos[pt_idx] = result.pt_pos[: len(pt_slots)]
+    world_map.state = st.replace(kf_pose=kf_pose, pt_pos=pt_pos)
+    n_bad = 0
+    if remove_bad:
+        bad, obs_cam_h, obs_pt_h = fetch_to_host(result.obs_bad, problem.obs_cam, problem.obs_pt)
+        if bad.any():
+            # clear only the affected keyframe rows
+            cams = np.asarray(kf_slots)[obs_cam_h[bad]]
+            pts = np.asarray(pt_slots)[obs_pt_h[bad]]
+            uniq = np.unique(cams)
+            ci = {int(s): i for i, s in enumerate(uniq)}
+            rows_d = torch.from_numpy(uniq.astype(np.int64)).to(dev)
+            rows = world_map.state.kf_ids[rows_d].cpu().numpy().copy()
+            rix = [ci[int(c)] for c in cams]
+            hits = rows[rix] == pts[:, None]
+            clear = np.zeros_like(rows, bool)
+            np.logical_or.at(clear, rix, hits)
+            n_bad = int(clear.sum())
+            rows[clear] = -1
+            kf_ids = world_map.state.kf_ids.clone()
+            kf_ids[rows_d] = torch.from_numpy(rows).to(dev)
+            world_map.state = world_map.state.replace(kf_ids=kf_ids)
+    return n_bad
+
+
+def local_bundle_adjustment(
+    world_map: Map, cam: CameraParams, center_kf: int, n_iters: int = 15, max_window: int | None = None,
+) -> int:
+    """Covis-window BA around a keyframe: the neighbours sharing >= 15
+    points are optimized, the keyframes they share points with are held
+    fixed. Returns the number of bad associations removed."""
+    covis = world_map.covis_matrix()
+    w = covis[center_kf].copy()
+    w[center_kf] = 0
+    order = np.argsort(-w)
+    cap = (len(order) + 1) if max_window is None else max_window
+    window = [center_kf] + [int(s) for s in order[: cap - 1] if w[s] >= 15]
+    if len(window) < 2:
+        return 0
+    window_set = set(window)
+    boundary = [int(s) for s in np.nonzero(covis[window].sum(0) > 0)[0] if int(s) not in window_set]
+    problem, kf_slots, pt_slots = build_ba_problem(
+        world_map, cam, used_kfs=np.asarray(window), fixed_kfs=np.asarray(boundary, int),
+        fix_first=len(boundary) == 0,
+    )
+    if len(pt_slots) == 0:
+        return 0
+    result = ba_solve(problem, cam, iters=n_iters, stages=2)
+    return apply_ba_result(world_map, result, kf_slots, pt_slots, problem)

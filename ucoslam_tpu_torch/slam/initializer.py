@@ -1,0 +1,148 @@
+"""Map bootstrapping from two views.
+
+Port of the keypoint path of `ucoslam_tpu/slam/initializer.py`: match the
+reference frame against the current one, run the F and H hypotheses,
+recover the motion, triangulate, and normalize the scale to median scene
+depth 1. The hypotheses' rows are drawn on the host from a numpy generator
+seeded 0x1717 (the reference's PRNG key), uniformly among the valid
+matches, and handed to `estimate_two_view`, so the card and the CPU draw
+the same hypotheses. Depth and marker initialization and the lost-segment
+re-seed raise NotImplementedError, each naming its ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ucoslam_tpu_torch.config import Params
+from ucoslam_tpu_torch.geometry.camera import CameraParams
+from ucoslam_tpu_torch.geometry.twoview import estimate_two_view, reconstruct_two_view
+from ucoslam_tpu_torch.mapping.frame import Frame, fetch_to_host
+from ucoslam_tpu_torch.mapping.map import Map
+from ucoslam_tpu_torch.matching.matcher import match_frames
+
+#: F/H hypotheses drawn per attempt (the reference's default n_hypotheses)
+N_HYPOTHESES = 256
+
+
+def _min_max_dist(dist: np.ndarray, octave: np.ndarray, params: Params):
+    """MapPoint scale-invariance bounds from creation distance + octave."""
+    sf = params.scaleFactor
+    max_d = dist * (sf**octave)
+    min_d = max_d / (sf ** (params.nOctaveLevels - 1))
+    return min_d, max_d
+
+
+def _view_normals(pts_w: np.ndarray, pose_f2g: np.ndarray) -> np.ndarray:
+    R, t = pose_f2g[:3, :3], pose_f2g[:3, 3]
+    rays = pts_w - (-R.T @ t)
+    return (rays / np.linalg.norm(rays, axis=1, keepdims=True).clip(1e-9)).astype(np.float32)
+
+
+class MapInitializer:
+    """Two-view bootstrap writing directly into a Map."""
+
+    def __init__(self, params: Params, cam: CameraParams):
+        self.params = params
+        self.cam = cam
+        self.ref_frame: Frame | None = None
+        self._rng = np.random.default_rng(0x1717)
+
+    def set_reference_frame(self, frame: Frame) -> None:
+        self.ref_frame = frame
+
+    def initialize_from_depth(self, frame: Frame, world_map: Map) -> bool:
+        raise NotImplementedError(
+            "initialization from depth is not ported yet (ROADMAP.md, Queue 1 item 4: stereo and RGB-D)"
+        )
+
+    def initialize_from_markers(self, frame: Frame, world_map: Map):
+        raise NotImplementedError(
+            "initialization from markers is not ported yet (ROADMAP.md, Queue 1 item 3: markers)"
+        )
+
+    def reseed_two_view(self, frame, world_map, anchor_pose, baseline_hint, creation_kf):
+        raise NotImplementedError(
+            "re-seeding a lost map segment is not ported yet (ROADMAP.md, Queue 1 item 2: relocalization)"
+        )
+
+    def _draw_samples(self, valid: np.ndarray, device) -> torch.Tensor:
+        rows = np.nonzero(valid)[0]
+        idx = self._rng.choice(rows, size=(N_HYPOTHESES, 8), replace=True)
+        return torch.from_numpy(idx.astype(np.int64)).to(device)
+
+    def _two_view_geometry(self, frame: Frame):
+        """Match vs the stored reference frame, H/F RANSAC, motion recovery,
+        triangulation. -> an error-status string, or (points_refcam,
+        point_ok, pose_21, train_idx) on the host."""
+        ref = self.ref_frame
+        p = self.params
+        matches = match_frames(ref, frame, float(p.maxDescDistance), nn_ratio=0.9)
+        n_matches, valid = fetch_to_host(matches.n_matches, matches.valid)
+        if int(n_matches) < 100:
+            return "few_matches"
+        dev = ref.und_xy.device
+        t_idx = matches.train_idx
+        uv1 = ref.und_xy
+        uv2 = frame.und_xy[torch.where(t_idx >= 0, t_idx, 0).long()]
+        log_sf = torch.log(torch.tensor(p.scaleFactor, dtype=torch.float32, device=dev))
+        sigma2 = torch.exp(2.0 * ref.octave.to(torch.float32) * log_sf)
+        model = estimate_two_view(uv1, uv2, matches.valid, sigma2, self._draw_samples(valid, dev))
+        rec = reconstruct_two_view(
+            model, uv1, uv2, matches.valid, sigma2, self.cam, self.cam,
+            min_triangulated=50, min_parallax_deg=1.0,
+        )
+        ok, points, point_ok, pose_21, train_idx = fetch_to_host(
+            rec.ok, rec.points, rec.point_ok, rec.pose_21, t_idx
+        )
+        if not bool(ok):
+            return "no_geometry"
+        return points, point_ok, pose_21.copy(), train_idx
+
+    def initialize_two_view(self, frame: Frame, world_map: Map):
+        """Attempt a two-view init against the stored reference frame.
+        -> (status, cur_frame_with_pose); status "ok" on success, else
+        "no_ref" / "few_matches" / "no_geometry". On success the map holds
+        two keyframes and the triangulated points, at median depth 1."""
+        if self.ref_frame is None:
+            return "no_ref", frame
+        ref = self.ref_frame
+        got = self._two_view_geometry(frame)
+        if isinstance(got, str):
+            return got, frame
+        pts, ok, pose2, train_idx = got
+        med = float(np.median(pts[ok][:, 2]))
+        if med <= 1e-6:
+            return "no_geometry", frame
+        scale = 1.0 / med
+        pts = pts * scale
+        pose2[:3, 3] *= scale
+
+        idx1 = np.nonzero(ok)[0]  # keypoint index in the reference frame
+        idx2 = train_idx[idx1]
+        ref_octave, ref_desc = fetch_to_host(ref.octave, ref.desc)
+        octave1 = ref_octave[idx1]
+        dist = np.linalg.norm(pts[idx1], axis=1)
+        min_d, max_d = _min_max_dist(dist, octave1, self.params)
+        slots = world_map.add_points(
+            pos=pts[idx1],
+            normal=_view_normals(pts[idx1], np.eye(4, dtype=np.float32)),
+            desc=ref_desc[idx1],
+            min_dist=min_d,
+            max_dist=max_d,
+            flags=np.zeros(len(idx1), np.int32),
+            creation_kf=0,
+        )
+        ids1 = np.full(ref.n, -1, np.int32)
+        ids1[idx1] = slots
+        ids2 = np.full(frame.n, -1, np.int32)
+        ids2[idx2] = slots
+        dev = ref.und_xy.device
+        ref2 = ref.replace(
+            ids=torch.from_numpy(ids1).to(dev), pose_f2g=torch.eye(4, dtype=torch.float32, device=dev)
+        )
+        cur = frame.replace(ids=torch.from_numpy(ids2).to(dev), pose_f2g=torch.from_numpy(pose2).to(dev))
+        world_map.add_keyframe(ref2)
+        world_map.add_keyframe(cur)
+        return "ok", cur

@@ -1,9 +1,13 @@
-"""Tracking state machine for LOCALIZATION mode.
+"""Top-level SLAM orchestration and the tracking state machine.
 
-Port of the LOCALIZATION path of `ucoslam_tpu/slam/system.py`
-(`System.process_frame`): track against the loaded map with the motion-model
-prior, update the motion model, bump the point statistics. SLAM mode
-(initialization, keyframes, mapping, re-seeding) is not ported yet.
+Port of `ucoslam_tpu/slam/system.py`, sequential mode (`runSequential`):
+per frame, initialize from two views while the map is empty, else track
+with the motion-model prior, decide on a keyframe and hand it to the
+MapManager inline; LOCALIZATION mode tracks without mapping. Not ported,
+each raising NotImplementedError that names its ROADMAP item: markers,
+initialization from depth, relocalization (a lost frame with
+reLocalizationWithKeyPoints), the lost-segment re-seed, and the async
+mapper.
 """
 
 from __future__ import annotations
@@ -16,13 +20,13 @@ import torch
 from ucoslam_tpu_torch.config import Mode, Params, TrackingState
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import Frame
+from ucoslam_tpu_torch.mapping.kfdatabase import KeyFrameDataBase
 from ucoslam_tpu_torch.mapping.map import Map
+from ucoslam_tpu_torch.slam.initializer import MapInitializer
+from ucoslam_tpu_torch.slam.mapmanager import MapManager
 from ucoslam_tpu_torch.slam.tracker import TrackResult, Tracker
 
-NOT_PORTED_SLAM = (
-    "SLAM mode is not ported yet (ROADMAP.md, Queue 1: SLAM mode - initializer, "
-    "twoview, matcher, mapmanager, local BA)"
-)
+NOT_PORTED_MARKERS = "marker detection is not ported yet (ROADMAP.md, Queue 1 item 3: markers)"
 
 
 def disable_tf32() -> None:
@@ -33,13 +37,22 @@ def disable_tf32() -> None:
 
 
 class System:
-    def __init__(self, params: Params, cam: CameraParams, world_map: Map, device="cuda"):
+    def __init__(self, params: Params, cam: CameraParams, world_map: Map | None = None,
+                 kfdb: KeyFrameDataBase | None = None, device="cuda"):
         disable_tf32()
-        self.params = params.effective()
+        params = params.effective()
+        if params.detectMarkers:
+            raise NotImplementedError(NOT_PORTED_MARKERS)
+        self.params = params
         self.cam = cam
         self.device = torch.device(device)
-        self.map = world_map
-        self.tracker = Tracker(self.params, cam, self.device)
+        self.map = world_map if world_map is not None else Map(params, device=self.device)
+        self.tracker = Tracker(params, cam, self.device)
+        self.initializer = MapInitializer(params, cam)
+        self.manager = MapManager(params, cam, kfdb=kfdb, device=self.device)
+        if kfdb is None:
+            # no serialized database came with the map: derive it
+            self._add_to_kfdb(self.map.keyframes.active_slots())
         self.mode = Mode.SLAM
         self.state = TrackingState.LOST
         self.pose = None  # last pose_f2g (numpy 4x4) or None
@@ -47,9 +60,20 @@ class System:
         self.velocity = np.eye(4, dtype=np.float32)  # motion-model increment
         self.frames_since_kf = 0
         self.last_kf_inliers = 0
-        self.kf_counter = 0
-        self.metric_locked = False
+        self._last_kf_rot = None  # rotation (3x3) of the last inserted keyframe
+        self._lost_streak = 0  # consecutive lost frames (re-seed trigger)
+        self._dead_pose = None  # motion-model extrapolation while lost
+        self._init_failures = 0
+        self.stats_log = []
+        if not params.runSequential:
+            self.manager.start_async(self.map)
 
+    def _add_to_kfdb(self, slots) -> None:
+        st = self.map.state
+        for s in slots:
+            self.manager.kfdb.add(int(s), st.kf_desc[int(s)], st.kf_kpt_valid[int(s)])
+
+    # -- helpers --------------------------------------------------------
     def _prior(self) -> torch.Tensor:
         prior = np.eye(4, dtype=np.float32) if self.pose is None else self.velocity @ self.pose
         return torch.from_numpy(np.ascontiguousarray(prior, np.float32)).to(self.device)
@@ -60,14 +84,13 @@ class System:
         self.prev_pose = self.pose
         self.pose = new_pose.astype(np.float32)
 
+    # -- main entry -----------------------------------------------------
     def process_frame(self, frame: Frame) -> np.ndarray | None:
         """Process one extracted frame; returns pose_f2g or None if lost."""
         if self.map.n_keyframes == 0:
             if self.mode == Mode.LOCALIZATION:
                 return None
-            raise NotImplementedError(NOT_PORTED_SLAM)
-        if self.mode != Mode.LOCALIZATION:
-            raise NotImplementedError(NOT_PORTED_SLAM)
+            return self._try_initialize(frame)
 
         if self.state == TrackingState.TRACKING:
             res = self.tracker.track(self.map, frame, self._prior())
@@ -78,19 +101,142 @@ class System:
 
         if not res.ok:
             self.state = TrackingState.LOST
+            self._lost_streak += 1
+            if self.pose is not None:
+                base = self._dead_pose if self._dead_pose is not None else self.pose
+                self._dead_pose = (self.velocity @ base).astype(np.float32)
+            self._check_reseed()
+            self._log(frame, None, 0)
             return None
 
         self.state = TrackingState.TRACKING
+        self._lost_streak = 0
+        self._dead_pose = None
         pose = np.asarray(res.pose_f2g)
         self._update_motion_model(pose)
         self.frames_since_kf += 1
         if res.vis_mask is not None:
             self.map.bump_point_stats(res.vis_mask, res.seen_mask)
+
+        need_kf = self.mode == Mode.SLAM and self._need_keyframe(res)
+        # running max of tracked inliers since the last keyframe, after the decision
         self.last_kf_inliers = max(self.last_kf_inliers, res.n_inliers)
+        if need_kf:
+            # a loop correction or a metric rescale would move this pose too;
+            # neither is ported (the loop detector raises on a candidate, and
+            # only marker or depth maps are rescaled)
+            self.manager.new_keyframe(
+                self.map, res.frame, host_ids=res.host_ids, host_depth=res.host_depth, host_valid=res.host_valid
+            )
+            self.frames_since_kf = 0
+            self.last_kf_inliers = max(res.n_inliers, 1)
+            self._last_kf_rot = pose[:3, :3].copy()
+        self._log(frame, pose, res.n_inliers)
         return pose
 
+    def _check_reseed(self) -> None:
+        """The reference re-seeds a fresh map segment by two-view
+        initialization after `reseedAfterLostFrames` lost SLAM frames."""
+        p = self.params
+        if (
+            p.reseedAfterLostFrames > 0
+            and self.mode == Mode.SLAM
+            and self._lost_streak >= p.reseedAfterLostFrames
+            and self._dead_pose is not None
+        ):
+            raise NotImplementedError(
+                f"re-seeding after {self._lost_streak} lost frames is not ported yet "
+                "(ROADMAP.md, Queue 1 item 2: relocalization, reseed_two_view)"
+            )
+
+    def _try_initialize(self, frame: Frame) -> np.ndarray | None:
+        if self.params.forceInitializationFromMarkers:
+            self.initializer.set_reference_frame(frame)
+            self._log(frame, None, 0)
+            return None
+        if bool((frame.depth > 0).any()):
+            self.initializer.initialize_from_depth(frame, self.map)
+        if self.initializer.ref_frame is None:
+            self.initializer.set_reference_frame(frame)
+            self._log(frame, None, 0)
+            return None
+        status, cur = self.initializer.initialize_two_view(frame, self.map)
+        if status != "ok":
+            self._init_failures += 1
+            # re-seed the reference only when the scene moved on; a geometric
+            # failure usually means not enough baseline yet
+            if status == "few_matches":
+                self.initializer.set_reference_frame(frame)
+            self._log(frame, None, 0)
+            return None
+        return self._finish_init(frame, cur)
+
+    def _finish_init(self, frame: Frame, cur: Frame) -> np.ndarray:
+        self.state = TrackingState.TRACKING
+        pose = cur.pose_f2g.cpu().numpy()
+        self._update_motion_model(pose)
+        self.manager.kf_counter = self.map.n_keyframes
+        self.last_kf_inliers = max(int((cur.ids >= 0).sum()), 30)
+        self._last_kf_rot = pose[:3, :3].copy()
+        # the bootstrap keyframes must be searchable in the database
+        self._add_to_kfdb(self.map.keyframes.active_slots())
+        self._log(frame, pose, self.last_kf_inliers)
+        return pose
+
+    def _need_keyframe(self, res: TrackResult) -> bool:
+        """Keyframe policy: needed when the tracked inliers drop below
+        thRefRatio x the running max since the last keyframe, when tracking
+        has gone stale, when (stereo) tracked close points are scarce, or
+        when the view has rotated kfRotationDeg past the last keyframe; the
+        frame qualifies with >= 20 inliers at KFMinConfidence."""
+        p = self.params
+        if self.frames_since_kf < 1:
+            return False
+        ref = max(self.last_kf_inliers, 1)
+        th = p.thRefRatio if self.cam.bl <= 0 else min(p.thRefRatio, 0.75)
+        need = (res.n_inliers < th * ref and res.n_inliers > 15) or self.frames_since_kf >= 20
+        if not need and self.cam.bl > 0:
+            depth, ids, kvalid = res.host_depth, res.host_ids, res.host_valid
+            close = (depth > 0) & (depth < 40.0 * self.cam.bl)
+            tracked_close = int((close & (ids >= 0)).sum())
+            creatable = int((close & (ids < 0) & kvalid).sum())
+            need = tracked_close < 100 and creatable > 70
+        if not need and p.kfRotationDeg > 0 and self._last_kf_rot is not None and self.pose is not None:
+            dR = self.pose[:3, :3] @ self._last_kf_rot.T
+            cosang = np.clip((np.trace(dR) - 1.0) / 2.0, -1.0, 1.0)
+            need = np.degrees(np.arccos(cosang)) >= p.kfRotationDeg
+        confidence = res.n_inliers / max(res.n_matches, 1)
+        return bool(need and res.n_inliers >= 20 and confidence >= p.KFMinConfidence)
+
+    def _log(self, frame: Frame, pose, n_inliers) -> None:
+        self.stats_log.append({
+            "fseq": int(frame.fseq),
+            "tracked": pose is not None,
+            "n_inliers": n_inliers,
+            "n_points": self.map.n_points,
+            "n_kf": self.map.n_keyframes,
+        })
+
+    # -- public control -------------------------------------------------
     def set_mode(self, mode: Mode) -> None:
         self.mode = mode
+
+    def set_params(self, params: Params) -> None:
+        """Propagate a live Params change into every captured copy."""
+        params = params.effective()
+        self.params = params
+        self.tracker.params = params
+        self.initializer.params = params
+        self.manager.params = params
+        self.manager.loop_detector.params = params
+
+    def reset_tracker(self) -> None:
+        """Re-enter a known map."""
+        self.state = TrackingState.LOST
+        self.pose = None
+        self.velocity = np.eye(4, dtype=np.float32)
+        self._lost_streak = 0
+        self._dead_pose = None
 
     def global_signature(self) -> int:
         """Order-sensitive hash over map + params + tracker state (the
@@ -108,7 +254,7 @@ class System:
         upd_f(self.velocity)
         for v in (
             int(self.state), int(self.mode), self.frames_since_kf,
-            self.kf_counter, self.last_kf_inliers, int(self.metric_locked),
+            self.manager.kf_counter, self.last_kf_inliers, int(self.manager.metric_locked),
         ):
             h.update(int(v).to_bytes(8, "little", signed=True))
         return int.from_bytes(h.digest(), "little")

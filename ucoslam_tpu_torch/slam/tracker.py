@@ -16,7 +16,7 @@ import torch
 
 from ucoslam_tpu_torch.config import Params
 from ucoslam_tpu_torch.geometry.camera import CameraParams
-from ucoslam_tpu_torch.mapping.frame import Frame
+from ucoslam_tpu_torch.mapping.frame import Frame, fetch_to_host
 from ucoslam_tpu_torch.mapping.map import Map, MapState
 from ucoslam_tpu_torch.matching.projection import match_points_to_frame
 from ucoslam_tpu_torch.optim.pnp import motion_only_lm
@@ -37,27 +37,8 @@ class TrackResult:
     vis_mask: torch.Tensor | None = None  # (P,) bool points searched this frame
     seen_mask: torch.Tensor | None = None  # (P,) bool points matched as inliers
     host_ids: np.ndarray | None = None  # (N,) int32
-
-
-def fetch_to_host(*tensors: torch.Tensor) -> list[np.ndarray]:
-    """Copy several tensors to the host in ONE device->host transfer: each is
-    bit-cast (float32) or converted (bool, integers) to int32, concatenated,
-    copied once, and split again."""
-    flat = torch.cat([
-        t.reshape(-1).view(torch.int32) if t.dtype == torch.float32
-        else t.reshape(-1).to(torch.int32)
-        for t in tensors
-    ]).cpu().numpy()
-    out, start = [], 0
-    for t in tensors:
-        a = flat[start : start + t.numel()].reshape(tuple(t.shape))
-        start += t.numel()
-        if t.dtype == torch.float32:
-            a = a.view(np.float32)
-        elif t.dtype == torch.bool:
-            a = a != 0
-        out.append(a)
-    return out
+    host_depth: np.ndarray | None = None  # (N,) float32
+    host_valid: np.ndarray | None = None  # (N,) bool
 
 
 def _track_step(
@@ -156,8 +137,9 @@ class Tracker:
             world_map, frame, prior, float(p.projDistThr)
         )
         # ONE bundled transfer for everything the host control flow needs
-        pose_np, ids_np, inlier_np, n_matched_np, n_inl = fetch_to_host(
-            pose, ids, inlier, n_matched, n_inliers
+        # (the keyframe policy and insertion read the frame's depth/valid)
+        pose_np, ids_np, inlier_np, n_matched_np, n_inl, depth_np, valid_np = fetch_to_host(
+            pose, ids, inlier, n_matched, n_inliers, frame.depth, frame.valid
         )
         n_inl = int(n_inl)
         if n_inl < 15:
@@ -180,10 +162,12 @@ class Tracker:
             vis_mask=vis if ok else None,
             seen_mask=seen if ok else None,
             host_ids=ids_np,
+            host_depth=depth_np,
+            host_valid=valid_np,
         )
 
     def relocalize(self, world_map: Map, frame: Frame) -> TrackResult:
         raise NotImplementedError(
-            "relocalization is not ported yet (ROADMAP.md, Queue 1: relocalization "
-            "- kfdb, kfmatch, pnp_ransac)"
+            "relocalization is not ported yet (ROADMAP.md, Queue 1 item 2: relocalization "
+            "- kfmatch, pnp_ransac)"
         )

@@ -13,7 +13,12 @@ Phases (each prints one line or more; any failure raises and exits non-zero):
    must be exactly equal;
 3. kernel B2 (motion-only LM) against its plain version at B=2112 rows, mono
    and with depth, at both (iters, rounds) of the slice's track, (10, 4) and
-   (10, 2): pose max-abs difference < 1e-4 and the same inlier mask;
+   (10, 2): pose max-abs difference < 1e-4 and the same inlier mask; then
+   the batched launch (candidate verification's refines, (10, 2)) at C=5
+   problems of B=2048, each its own pose and mask (pose < 1e-4 and the same
+   masks as the plain version, each problem bit-equal to its own single
+   launch, and C=1 bit-equal to the single launch), and at B=16384 (the
+   brute-force relocalization's arena);
 4. the LOCALIZATION slice: `UcoSlam(device="cuda").readFromFile(mono_map.slm)`
    -> `setMode(LOCALIZATION)` -> one frame at a time over the 60-frame
    sequence in reverse, held against the JAX package's run of the same sweep
@@ -32,9 +37,33 @@ Phases (each prints one line or more; any failure raises and exits non-zero):
    reverse (tracked >= JAX's pass 2 - 2, ATE <= 1.2 x JAX + 0.002). B1 is
    launched twice per track attempt and once per keyframe insertion (the
    duplicate fusion), B2 twice per track attempt; B1 at the last fusion's
-   inputs is exactly equal to its plain version.
+   inputs is exactly equal to its plain version;
+6. recovery, each held to the JAX package's run of the same protocol
+   (`data/torch_port/mono_{reloc,reloc_bf,gap,reseed}_jax.json`): (a) the
+   JAX map localized in reverse with `resetTracker()` before each of the
+   reference's reset frames, so they relocalize through the keyframe database
+   (relocalized and tracked >= JAX's, ATE <= 1.2 x JAX + 0.002, centres
+   within 2% of the depth extent; one batched B2 launch per relocalization
+   with a candidate); (b) the same by brute force (a dummy database; B2 at
+   B=16384); (c) SLAM with frames 30-33 replaced by `resetTracker()`, twice
+   (tracked after the gap >= JAX - 2, one signature); (d) SLAM over the
+   splice of two scenes, which re-seeds a new segment (re-seeded, tracked
+   after it >= JAX - 2, a consistent map). `process` medians of
+   relocalized and tracked frames are printed apart;
+7. loop closure: the drifted ring map of tests/test_loopclosure.py
+   (`ring_loop_scene`, at the library's default capacities) through
+   `detect_from_keypoints` -> `correct_map` -> `global_bundle_adjustment`
+   on the card and on the CPU: the loop found against keyframe 0, its pose
+   within 0.05 of the truth, the drift reduced, >= 30 seam duplicates fused
+   as on the CPU, card and CPU keyframe poses within 1e-3 after the
+   correction, the global BA settling (the reference test's gate), one
+   batched B2 launch and one B1 launch per seam fusion; then
+   `globalOptimization` on phase 5's map on the card and on the CPU (chi2
+   falls, within 1% of the CPU's, poses within 1e-3). Phases 6 and 7 run
+   in the 60-frame run only.
 
-The kernels' times are medians of CUDA-event timings of single launches.
+The kernels' times are medians of CUDA-event timings of single launches
+(B2's batched record: of one batched launch, beside C single launches).
 Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations on these inputs over the
 card's peak rate for them: B2's float32 operations over 67 TFLOP/s, B1's
@@ -234,6 +263,131 @@ def b2_inputs(device, B=2112, seed=0, with_depth=False):
     )
 
 
+def ring_loop_scene(n_kf=10, n_pt_per=60):
+    """The drifted ring map of the loop-closure tests, as numpy arrays: a
+    ring of n_kf outward-looking keyframes, each observing its own n_pt_per
+    points and its predecessor's, poses carrying accumulated odometry drift
+    (points stored where their owner's drifted pose puts them, pixels from
+    the true geometry); then the returning camera, truly at keyframe 0's
+    pose, believing the drifted estimate, with its own duplicate copies of
+    keyframe 0's points. The same draws, in the same order, as the
+    reference's tests/test_loopclosure.py. Frame rows are unpadded."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.geometry.se3 import se3_exp
+    from ucoslam_tpu_torch.io.synthetic import _lookat
+
+    def project(q):
+        return np.stack([500.0 * q[:, 0] / q[:, 2] + 320.0, 500.0 * q[:, 1] / q[:, 2] + 240.0], -1)
+
+    rng = np.random.default_rng(3)
+    true_poses = []
+    for k in range(n_kf):
+        ang = 2 * np.pi * k / n_kf
+        eye = np.asarray([1.5 * np.sin(ang), 0.0, 1.5 * np.cos(ang)])
+        R, t = _lookat(eye, eye + np.asarray([4 * np.sin(ang), 0, 4 * np.cos(ang)]))
+        true_poses.append(np.vstack([np.hstack([R, t[:, None]]), [0, 0, 0, 1]]).astype(np.float32))
+    all_pts, all_desc, owner = [], [], []
+    for k in range(n_kf):
+        Tinv = np.linalg.inv(true_poses[k])
+        local = np.stack([rng.uniform(-1.5, 1.5, n_pt_per), rng.uniform(-1, 1, n_pt_per),
+                          rng.uniform(3, 6, n_pt_per)], -1)
+        all_pts.append((local @ Tinv[:3, :3].T + Tinv[:3, 3]).astype(np.float32))
+        all_desc.append(rng.integers(0, 2**32, (n_pt_per, 8), dtype=np.uint32))
+        owner.append(np.full(n_pt_per, k))
+    drift_poses = [true_poses[0]]
+    for k in range(1, n_kf):
+        rel = true_poses[k] @ np.linalg.inv(true_poses[k - 1])
+        noise = se3_exp(torch.from_numpy(rng.normal(0, 0.015, 6).astype(np.float32))).numpy()
+        drift_poses.append(noise @ rel @ drift_poses[-1])
+    pts_true = np.concatenate(all_pts)
+    owner = np.concatenate(owner)
+    pts = pts_true.copy()
+    for k in range(n_kf):
+        sel = owner == k
+        corr = np.linalg.inv(drift_poses[k]) @ true_poses[k]
+        pts[sel] = pts_true[sel] @ corr[:3, :3].T + corr[:3, 3]
+    descs = np.concatenate(all_desc)
+    centers = np.stack([-T[:3, :3].T @ T[:3, 3] for T in true_poses])[owner]
+    dist = np.linalg.norm(pts_true - centers, axis=1)
+    kfs = []
+    for k in range(n_kf):
+        obs = np.concatenate([k * n_pt_per + np.arange(n_pt_per)]
+                             + ([(k - 1) * n_pt_per + np.arange(n_pt_per)] if k > 0 else []))
+        T = true_poses[k]
+        uv = project(pts_true[obs] @ T[:3, :3].T + T[:3, 3]).astype(np.float32)
+        kfs.append(dict(obs=obs, uv=(uv + rng.normal(0, 0.3, uv.shape)).astype(np.float32), fseq=12 * k,
+                        pose=drift_poses[k].astype(np.float32)))
+    # the returning camera and its duplicates of keyframe 0's points
+    A = drift_poses[-1] @ np.linalg.inv(true_poses[-1])
+    cur_drifted = (A @ true_poses[0]).astype(np.float32)
+    p0 = pts[:n_pt_per]
+    corr = np.linalg.inv(cur_drifted) @ true_poses[0]
+    dup = (p0 @ corr[:3, :3].T + corr[:3, 3]).astype(np.float32)
+    c0 = -true_poses[0][:3, :3].T @ true_poses[0][:3, 3]
+    T0 = true_poses[0]
+    return dict(
+        true_poses=np.stack(true_poses), drift_poses=np.stack(drift_poses).astype(np.float32),
+        pts=pts, normals=pts / np.linalg.norm(pts, axis=1)[:, None], descs=descs,
+        min_dist=dist / 1.2**7, max_dist=dist * 1.15, kfs=kfs,
+        loop=dict(uv=project(p0 @ T0[:3, :3].T + T0[:3, 3]).astype(np.float32), desc=descs[:n_pt_per],
+                  pose=cur_drifted, fseq=200, dup=dup, dup_normals=dup / np.linalg.norm(dup, axis=1)[:, None],
+                  dup_min_dist=np.linalg.norm(p0 - c0, axis=1) / 1.2**7,
+                  dup_max_dist=np.linalg.norm(p0 - c0, axis=1) * 1.15),
+    )
+
+
+def ring_loop_map(scene, params, device):
+    """The port's Map, keyframe database and loop detector holding
+    ring_loop_scene, with the returning keyframe inserted (its keypoints
+    claimed by the duplicates). -> (map, detector, loop keyframe slot, frame)."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.geometry.camera import CameraParams
+    from ucoslam_tpu_torch.mapping.frame import empty_frame
+    from ucoslam_tpu_torch.mapping.kfdatabase import KeyFrameDataBase
+    from ucoslam_tpu_torch.mapping.map import Map
+    from ucoslam_tpu_torch.slam.loopclosure import LoopDetector
+
+    cam = CameraParams.create(500.0, 500.0, 320.0, 240.0)
+    m = Map(params, device=device)
+    n = m.state.N
+    slots = m.add_points(scene["pts"], scene["normals"], scene["descs"], scene["min_dist"], scene["max_dist"],
+                         np.zeros(len(scene["pts"]), np.int32), 0)
+
+    def frame(uv, desc, ids, pose, fseq):
+        k = len(uv)
+        pad = lambda a, fill=0: np.concatenate([a, np.full((n - k,) + a.shape[1:], fill, a.dtype)])
+        t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        return empty_frame(n, device).replace(
+            fseq=fseq, und_xy=t(pad(uv)), desc=t(pad(desc).view(np.int32)), valid=t(np.arange(n) < k),
+            ids=t(pad(ids.astype(np.int32), -1)), pose_f2g=t(pose),
+        )
+
+    for kf in scene["kfs"]:
+        m.add_keyframe(frame(kf["uv"], scene["descs"][kf["obs"]], slots[kf["obs"]], kf["pose"], kf["fseq"]))
+    kfdb = KeyFrameDataBase(params.maxKeyFrames, device=device)
+    for s in m.keyframes.active_slots():
+        kfdb.add(int(s), m.state.kf_desc[int(s)], m.state.kf_kpt_valid[int(s)])
+    lp = scene["loop"]
+    dup_slots = m.add_points(lp["dup"], lp["dup_normals"], lp["desc"], lp["dup_min_dist"], lp["dup_max_dist"],
+                             np.zeros(len(lp["dup"]), np.int32), 0)
+    f = frame(lp["uv"], lp["desc"], dup_slots, lp["pose"], lp["fseq"])
+    kf_slot = m.add_keyframe(f)
+    kfdb.add(kf_slot, f.desc, f.valid)
+    return m, LoopDetector(params, cam, kfdb), kf_slot, f
+
+
+def b2_batch_inputs(device, C: int, B: int, seed: int = 100):
+    """C different b2_inputs problems of B rows (seeds seed .. seed+C-1:
+    each its own start pose, outliers and valid mask), stacked."""
+    import torch
+
+    probs = [b2_inputs(device, B=B, seed=seed + c) for c in range(C)]
+    names = ("pose_init", "pts3d", "uv", "sigma2", "valid")
+    return [torch.stack([p[k] for p in probs]).contiguous() for k in names]
+
+
 def phase_environment():
     import torch
 
@@ -323,6 +477,58 @@ def phase_b2():
             rec.setdefault("ms_by_case", {})[case] = ms
             if case == "mono 10x4":  # the slice's first refine: the timing recorded
                 rec.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+    rec.update(phase_b2_batched())
+    return rec
+
+
+def phase_b2_batched() -> dict:
+    """Batched B2 (candidate verification's refines, iters 10, rounds 2)
+    against its plain version: at C=5 problems of B=2048 rows (pose < 1e-4,
+    the same masks), C=1 bit-equal to the single launch, and B=16384 (the
+    brute-force relocalization's arena), single and batched."""
+    import torch
+    from ucoslam_tpu_torch.ops.cuda import lm_kernel
+
+    cam = (500.0, 500.0, 320.0, 240.0)
+    rec = {}
+    for C, B in ((5, 2048), (1, 16384)):
+        args = b2_batch_inputs("cuda", C, B)
+
+        def kernel():
+            return lm_kernel.motion_only_lm_fused_batched(*args, *cam, iters=10, rounds=2)
+
+        def plain():
+            return lm_kernel.motion_only_lm_plain_batched(*args, *cam, iters=10, rounds=2)
+
+        (pose_k, mask_k), (pose_p, mask_p) = kernel(), plain()
+        single = [lm_kernel.motion_only_lm_fused(*(a[c] for a in args), *cam, iters=10, rounds=2) for c in range(C)]
+        torch.cuda.synchronize()
+        err = float((pose_k - pose_p).abs().max())
+        check(err < 1e-4, f"batched B2 pose differs by {err} (C={C}, B={B})")
+        check(torch.equal(mask_k, mask_p), f"batched B2 inlier masks differ (C={C}, B={B})")
+        single_err = max(float((pose_k[c] - single[c][0]).abs().max()) for c in range(C))
+        check(all(torch.equal(single[c][1], mask_k[c]) for c in range(C)), "batched and single B2 masks differ")
+        ms, plain_ms = median_ms(kernel, 50), median_ms(plain, 3)
+        single_ms = median_ms(lambda: [lm_kernel.motion_only_lm_fused(*(a[c] for a in args), *cam, iters=10, rounds=2)
+                                       for c in range(C)], 50)
+        # C problems' bytes and float operations (b2_bound's count, summed)
+        nbytes = C * (64 + B * (12 + 8 + 4 + 1) + 64 + B)
+        t_ops = sum(10 * (int(args[4][c].sum()) + int(mask_k[c].sum())) for c in range(C)) * B2_ROW_OPS / FP32_OPS_PER_S
+        bound_ms, bound_by = bound_of(nbytes, t_ops)
+        print(f"[3 B2 batched] C={C} B={B} 10x2: pose_max_abs_err={err:.3e} masks equal; vs single launches "
+              f"max_abs={single_err:.3e} kernel_ms={ms:.4f} single_launches_ms={single_ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by})")
+        rec["max_abs_err_batched"] = max(rec.get("max_abs_err_batched", 0.0), err)
+        if C == 1:
+            check(single_err == 0.0, f"batched B2 at C=1 differs from the single launch by {single_err}")
+            rec.update(ms_b16384=single_ms, plain_ms_b16384=plain_ms, bound_ms_b16384=bound_ms)
+        else:
+            # C=1 of these problems, bit-equal to the single launch
+            one = lm_kernel.motion_only_lm_fused_batched(*(a[:1].contiguous() for a in args), *cam, iters=10, rounds=2)
+            check(torch.equal(one[0][0], single[0][0]) and torch.equal(one[1][0], single[0][1]),
+                  "batched B2 at C=1 is not bit-equal to the single launch")
+            rec.update(ms_batched=ms, plain_ms_batched=plain_ms, bound_ms_batched=bound_ms,
+                       bound_by_batched=bound_by, single_launches_ms_batched=single_ms)
     return rec
 
 
@@ -399,8 +605,7 @@ def phase_slice(scene):
     # process() is extract, then track: time each where process() calls it
     t_extract = timed(slam._extractor, "process")
     t_track = timed(slam._system, "process_frame")
-    match_kernel.launches = 0
-    lm_kernel.launches = 0
+    reset_counts()
     poses, t_process = {}, []
     for i in frames:
         t0 = time.perf_counter()
@@ -409,7 +614,7 @@ def phase_slice(scene):
         t_process.append(1e3 * (time.perf_counter() - t0))
         if pose is not None:
             poses[i] = pose
-    launches = {"B1": match_kernel.launches, "B2": lm_kernel.launches}
+    launches = counts()
     attempts = slam._system.tracker.n_attempts
     projection.project_match = inner_match
     first_live = int(first_valid[0].sum())
@@ -431,8 +636,9 @@ def phase_slice(scene):
     check(len(idx) >= ref["pass2_tracked"], "tracked fewer frames than the JAX package")
     check(ate <= 1.2 * ref["pass2_ate"] + 0.002, f"ATE {ate} over the limit")
     check(dev <= tol, f"camera centre {dev} from the JAX pose (tol {tol})")
-    for k, n in launches.items():
-        check(n > 0 and n == 2 * attempts, f"{k} launched {n} times for {attempts} track attempts")
+    for k in ("B1", "B2"):
+        check(launches[k] > 0 and launches[k] == 2 * attempts,
+              f"{k} launched {launches[k]} times for {attempts} track attempts")
     check(abs(first_live - SLICE_LIVE_ROWS) <= 0.1 * SLICE_LIVE_ROWS,
           f"B1 had {first_live} live rows on the first attempt; SLICE_LIVE_ROWS is {SLICE_LIVE_ROWS}")
     return launches
@@ -476,8 +682,7 @@ def slam_pass(params, cam, images) -> dict:
 
     mgr._fuse_duplicates, projection.project_match = fuse, match
     poses, t_frame = {}, {"init": [], "track": [], "keyframe": []}
-    match_kernel.launches = 0
-    lm_kernel.launches = 0
+    reset_counts()
     for i, img in enumerate(images):
         mapped, inserted = slam.map.n_keyframes > 0, mgr.n_insertions
         t0 = time.perf_counter()
@@ -487,7 +692,7 @@ def slam_pass(params, cam, images) -> dict:
         t_frame[kind].append(1e3 * (time.perf_counter() - t0))
         if pose is not None:
             poses[i] = pose
-    launches = {"B1": match_kernel.launches, "B2": lm_kernel.launches}
+    launches = counts()
     ba.local_bundle_adjustment, projection.project_match = inner_ba, inner_match
     return dict(slam=slam, poses=poses, t_frame=t_frame, steps=steps, launches=launches,
                 attempts=slam._system.tracker.n_attempts, insertions=mgr.n_insertions,
@@ -496,14 +701,15 @@ def slam_pass(params, cam, images) -> dict:
 
 def check_slam_launches(run: dict, what: str) -> None:
     n1, n2, a, k = run["launches"]["B1"], run["launches"]["B2"], run["attempts"], run["insertions"]
+    nb = run["launches"]["B2_batched"]  # loop verifications (none met on this scene so far)
     check(a > 0 and k > 0, f"{what}: {a} track attempts and {k} keyframe insertions")
     check(n1 == 2 * a + k, f"{what}: B1 launched {n1} times for {a} track attempts and {k} insertions")
-    check(n2 == 2 * a, f"{what}: B2 launched {n2} times for {a} track attempts")
+    check(n2 == 2 * a + nb, f"{what}: B2 launched {n2} times for {a} track attempts and {nb} loop verifications")
 
 
-def phase_slam(scene, map_path: str) -> dict:
-    """Phase 5 -> the kernels' launches on its main path, and B1's record at
-    the last fusion's inputs."""
+def phase_slam(scene, map_path: str, workdir: str) -> dict:
+    """Phase 5 -> the kernels' launches on its main path, B1's record at
+    the last fusion's inputs, and the pass-1 checkpoint (in workdir)."""
     import numpy as np
     import torch
     from ucoslam_tpu_torch import Mode
@@ -555,15 +761,13 @@ def phase_slam(scene, map_path: str) -> dict:
     fuse_bound_ms, fuse_bound_by, passing = b1_bound(args)
 
     # save, reload in a fresh instance, localize the sequence in reverse
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "slam.slm")
-        slam.saveToFile(path)
-        loc = UcoSlam(device="cuda")
-        loc.readFromFile(path, cam)
+    path = os.path.join(workdir, "slam.slm")
+    slam.saveToFile(path)
+    loc = UcoSlam(device="cuda")
+    loc.readFromFile(path, cam)
     check(loc.getSignatureStr() == slam.getSignatureStr(), "the reloaded checkpoint has another signature")
     loc.setMode(Mode.LOCALIZATION)
-    match_kernel.launches = 0
-    lm_kernel.launches = 0
+    reset_counts()
     rev, t_rev = {}, []
     for i in reversed(range(len(images))):
         t0 = time.perf_counter()
@@ -572,7 +776,7 @@ def phase_slam(scene, map_path: str) -> dict:
         t_rev.append(1e3 * (time.perf_counter() - t0))
         if pose is not None:
             rev[i] = pose
-    rev_launches = {"B1": match_kernel.launches, "B2": lm_kernel.launches}
+    rev_launches = counts()
     rev_attempts = loc._system.tracker.n_attempts
     check(len(rev) >= 3, f"the reverse sweep tracked only {len(rev)} frames")
     rev_ate = ate_of(rev, seq)
@@ -582,7 +786,8 @@ def phase_slam(scene, map_path: str) -> dict:
     check(len(rev) >= ref["pass2_tracked"] - 2, "the reverse sweep tracked over 2 frames fewer than JAX's")
     check(rev_ate <= 1.2 * ref["pass2_ate"] + 0.002, f"reverse-sweep ATE {rev_ate} over the limit")
     for k, n in rev_launches.items():
-        check(n > 0 and n == 2 * rev_attempts, f"{k} launched {n} times for {rev_attempts} track attempts")
+        check(k == "B2_batched" or n > 0 and n == 2 * rev_attempts,
+              f"{k} launched {n} times for {rev_attempts} track attempts")
         launches[k] += n
 
     def med(ts):
@@ -597,9 +802,268 @@ def phase_slam(scene, map_path: str) -> dict:
           f"culling={med(culling)}; b1_fuse: live_rows={int(args[3].sum())} of {args[0].shape[0]} "
           f"keypoints={int(args[7].sum())} gated_pairs={passing} exact kernel_ms={fuse_ms:.4f} "
           f"plain_ms={fuse_plain_ms:.4f} bound_ms={fuse_bound_ms:.6f} ({fuse_bound_by})")
-    return dict(launches=launches, b1_fuse=dict(
+    return dict(launches=launches, checkpoint=path, b1_fuse=dict(
         launches_fuse=fuse_launches, ms_fuse=fuse_ms,
         plain_ms_fuse=fuse_plain_ms, bound_ms_fuse=fuse_bound_ms, bound_by_fuse=fuse_bound_by))
+
+
+def recovery_ref(name: str) -> dict:
+    with open(os.path.join(HERE, "data", "torch_port", f"mono_{name}_jax.json")) as f:
+        return json.load(f)
+
+
+def counts() -> dict:
+    from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
+
+    return {"B1": match_kernel.launches, "B2": lm_kernel.launches, "B2_batched": lm_kernel.batched_launches}
+
+
+def reset_counts() -> None:
+    from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
+
+    match_kernel.launches = lm_kernel.launches = lm_kernel.batched_launches = 0
+
+
+def reloc_sweep(scene, brute_force: bool) -> dict:
+    """Phase 6 (a) or (b): the JAX map localized in reverse, resetTracker()
+    before each of its reset frames, held to the JAX package's same sweep."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch import Mode
+    from ucoslam_tpu_torch.api import UcoSlam
+    from ucoslam_tpu_torch.config import TrackingState
+
+    ref, cam, seq, images = scene
+    jax_ref = recovery_ref("reloc_bf" if brute_force else "reloc")
+    reset_frames = set(jax_ref["reset_frames"])
+    slam = UcoSlam(device="cuda")
+    slam.readFromFile(MAP_PATH, cam)
+    slam.setMode(Mode.LOCALIZATION)
+    system = slam._system
+    if brute_force:
+        system.manager.kfdb.dummy = True
+    tracker = system.tracker
+    poses, t_reloc, t_track = {}, [], []
+    reset_counts()
+    for i in reversed(range(seq.n_frames)):
+        if i in reset_frames:
+            slam.resetTracker()
+        lost = system.state != TrackingState.TRACKING
+        t0 = time.perf_counter()
+        pose = slam.process(images[i], fseq=i)
+        torch.cuda.synchronize()
+        (t_reloc if lost else t_track).append(1e3 * (time.perf_counter() - t0))
+        if pose is not None:
+            poses[i] = pose
+    launches = counts()
+    for p in poses.values():
+        check(p.shape == (4, 4) and np.isfinite(p).all(), "non-finite pose")
+    ref_poses = {int(k): np.asarray(v) for k, v in jax_ref["poses"].items()}
+    relocalized = sum(i in poses for i in reset_frames)
+    ate = ate_of(poses, seq)
+    dev = max(np.linalg.norm(camera_center(poses[i]) - camera_center(ref_poses[i])) for i in poses if i in ref_poses)
+    tol = 0.02 * ref["depth_extent"]
+    what = "(b) brute force" if brute_force else "(a) BoW"
+    print(f"[6 reloc] {what}: relocalized={relocalized}/{len(reset_frames)} (jax {jax_ref['relocalized']}) "
+          f"tracked={len(poses)} (jax {jax_ref['tracked']}) ate={ate:.6f} (jax {jax_ref['ate']:.6f}) "
+          f"max_centre_dev={dev:.6f} (tol {tol:.6f}) relocalizations={tracker.n_relocalizations} "
+          f"attempts={tracker.n_attempts} launches={launches} process_ms_median: reloc={np.median(t_reloc):.3f} "
+          f"(n={len(t_reloc)}) track={np.median(t_track):.3f} (n={len(t_track)})")
+    check(relocalized >= jax_ref["relocalized"], f"{what}: relocalized fewer reset frames than the JAX package")
+    check(len(poses) >= jax_ref["tracked"], f"{what}: tracked fewer frames than the JAX package")
+    check(ate <= 1.2 * jax_ref["ate"] + 0.002, f"{what}: ATE {ate} over the limit")
+    check(dev <= tol, f"{what}: camera centre {dev} from the JAX pose (tol {tol})")
+    check(launches["B1"] == 2 * tracker.n_attempts, f"{what}: B1 launched {launches['B1']} times")
+    if brute_force:  # one single launch at B = the arena per relocalization, 2 per track attempt
+        check(launches["B2_batched"] == 0 and launches["B2"] == 2 * tracker.n_attempts + tracker.n_relocalizations,
+              f"{what}: B2 launches {launches}")
+    else:  # one batched launch per relocalization with a candidate
+        check(1 <= launches["B2_batched"] <= tracker.n_relocalizations
+              and launches["B2"] == 2 * tracker.n_attempts + launches["B2_batched"], f"{what}: B2 launches {launches}")
+    return dict(launches=launches, reloc_ms=float(np.median(t_reloc)), track_ms=float(np.median(t_track)))
+
+
+def slam_frames(params, cam, images, skip=()) -> dict:
+    """A SLAM pass of UcoSlam(device="cuda") over images, resetTracker() in
+    place of the `skip` frames (not processed)."""
+    import torch
+    from ucoslam_tpu_torch.api import UcoSlam
+
+    slam = UcoSlam(device="cuda")
+    slam.setParams(None, params, cam)
+    poses = {}
+    for i, img in enumerate(images):
+        if i in skip:
+            slam.resetTracker()
+            continue
+        pose = slam.process(img, fseq=i)
+        if pose is not None:
+            poses[i] = pose
+    torch.cuda.synchronize()
+    return dict(slam=slam, poses=poses)
+
+
+def phase_recovery(scene) -> dict:
+    """Phase 6 -> the kernels' launches on its main paths, and times."""
+    import numpy as np
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.io.serialize import load_map_meta
+    from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
+
+    ref, cam, seq, images = scene
+    launches = {"B1": 0, "B2": 0, "B2_batched": 0}
+    out = {}
+    for brute_force in (False, True):
+        r = reloc_sweep(scene, brute_force)
+        launches = {k: n + r["launches"][k] for k, n in launches.items()}
+        out["bf" if brute_force else "bow"] = r
+    params = Params.from_dict(load_map_meta(MAP_PATH)["params"])
+
+    # (c) SLAM through a gap of reset frames, twice
+    gap = recovery_ref("gap")
+    skip, after = set(gap["gap_frames"]), max(gap["gap_frames"]) + 1
+    reset_counts()
+    runs = [slam_frames(params, cam, images, skip=skip) for _ in range(2)]
+    c = counts()
+    launches = {k: n + c[k] for k, n in launches.items()}
+    tracked_after = [sum(i >= after for i in r["poses"]) for r in runs]
+    sigs = [r["slam"].getSignatureStr() for r in runs]
+    loops = [r["slam"]._system.manager.loop_closures for r in runs]
+    print(f"[6 gap] (c) frames {sorted(skip)} reset: tracked={len(runs[0]['poses'])} (jax {gap['tracked']}) "
+          f"tracked_after_gap={tracked_after[0]} (jax {gap['tracked_after_gap']}) ate={ate_of(runs[0]['poses'], seq):.6f} "
+          f"(jax {gap['ate']:.6f}) relocalizations={runs[0]['slam']._system.tracker.n_relocalizations} "
+          f"loop_closures={loops[0]} signature={sigs[0]} again={sigs[1]} launches(two passes)={c}")
+    check(tracked_after[0] >= gap["tracked_after_gap"] - 2, "(c): tracked over 2 frames fewer after the gap than JAX")
+    check(sigs[0] == sigs[1] and tracked_after[0] == tracked_after[1], "(c): a second pass gave another signature")
+    runs[0]["slam"].map.check_consistency()
+    del runs
+
+    # (d) the re-seed on the splice
+    rs = recovery_ref("reseed")
+    other = SyntheticSequence(cam=cam, **rs["splice"]["sequence"])
+    at = rs["splice"]["at"]
+    spliced = images[:at] + [other.render(i) for i in range(at, len(images))]
+    reset_counts()
+    r = slam_frames(params, cam, spliced)
+    c = counts()
+    launches = {k: n + c[k] for k, n in launches.items()}
+    slam = r["slam"]
+    got_at = reseed_frame(slam._system.stats_log, params.reseedAfterLostFrames)
+    after = None if got_at is None else sum(i > got_at for i in r["poses"])
+    print(f"[6 reseed] (d) splice at {at}: reseed_frame={got_at} (jax {rs['reseed_frame']}) tracked_after_reseed="
+          f"{after} (jax {rs['tracked_after_reseed']}) tracked={len(r['poses'])} (jax {rs['tracked']}) "
+          f"keyframes={slam.map.n_keyframes} (jax {rs['n_keyframes']}) launches={c}")
+    check(got_at is not None, "(d): the port did not re-seed")
+    check(after >= rs["tracked_after_reseed"] - 2, "(d): tracked over 2 frames fewer after the re-seed than JAX")
+    slam.map.check_consistency()
+    out["launches"] = launches
+    return out
+
+
+def reseed_frame(log: list, after_lost: int):
+    """First frame whose keyframe count rose by 2 (the two keyframes of a
+    re-seeded segment) after >= after_lost lost frames in a row, from a
+    System's stats_log; None if there is none."""
+    streak = 0
+    for prev, cur in zip(log, log[1:]):
+        if cur["n_kf"] == prev["n_kf"] + 2 and streak >= after_lost:
+            return cur["fseq"]
+        streak = streak + 1 if not cur["tracked"] else 0
+    return None
+
+
+def loop_on(device: str) -> dict:
+    """detect_from_keypoints -> correct_map -> global BA on the drifted ring
+    map at the library's default capacities, on one device."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.optim.ba import global_bundle_adjustment
+    from ucoslam_tpu_torch.slam import mapmanager
+
+    def sync_ms(t0):
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0)
+
+    scene = ring_loop_scene()
+    params = Params().replace(maxDescDistance=60.0, detectMarkers=False, KFMinConfidence=0.4)
+    m, det, slot, f = ring_loop_map(scene, params, device)
+    fused, inner = [], mapmanager.fuse_duplicates_into_kf
+    mapmanager.fuse_duplicates_into_kf = lambda *a: fused.append(a[1]) or inner(*a)
+    reset_counts()
+    ms = {}
+    try:
+        t0 = time.perf_counter()
+        info = det.detect_from_keypoints(m, slot, f)
+        ms["detect"] = sync_ms(t0)
+        n_before = m.n_points
+        t0 = time.perf_counter()
+        ok = info.found and det.correct_map(m, info)
+        ms["correct"] = sync_ms(t0)
+    finally:
+        mapmanager.fuse_duplicates_into_kf = inner
+    c = counts()
+    poses_corr = m.h("kf_pose")[m.keyframes.active_slots()].copy()
+    chi_merged = m.global_reproj_chi2(det.cam)
+    t0 = time.perf_counter()
+    global_bundle_adjustment(m, det.cam, n_iters=15)
+    ms["global_ba"] = sync_ms(t0)
+    return dict(info=info, ok=ok, n_before=n_before, n_after=m.n_points, fused=fused, launches=c, ms=ms,
+                poses_corr=poses_corr, poses=m.h("kf_pose")[m.keyframes.active_slots()].copy(),
+                chi_merged=chi_merged, chi=m.global_reproj_chi2(det.cam), scene=scene,
+                drift_after=float(np.linalg.norm(poses_corr[9] - scene["true_poses"][9])),
+                drift_before=float(np.linalg.norm(scene["drift_poses"][9] - scene["true_poses"][9])))
+
+
+def phase_loop(slam_map_slm: str, cam) -> dict:
+    """Phase 7 -> the kernels' launches on its main paths."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.api import UcoSlam
+
+    card, cpu = loop_on("cuda"), loop_on("cpu")
+    info = card["info"]
+    pose_err = float(np.linalg.norm(info.expected_pose - card["scene"]["true_poses"][0])) if info.found else None
+    d_corr = float(np.abs(card["poses_corr"] - cpu["poses_corr"]).max())
+    d_ba = float(np.abs(card["poses"] - cpu["poses"]).max())
+    print(f"[7 loop] ring map: found={info.found} matched_kf={info.matched_kf} n_inliers={info.n_matches} "
+          f"expected_pose_err={pose_err} corrected={card['ok']} drift {card['drift_before']:.4f} -> "
+          f"{card['drift_after']:.4f} points {card['n_before']} -> {card['n_after']} (cpu {cpu['n_after']}) "
+          f"fused_kfs={card['fused']} chi2 merged={card['chi_merged']:.4f} after_global_ba={card['chi']:.4f} "
+          f"(cpu {cpu['chi']:.4f}) card_vs_cpu_pose_max_abs: corrected={d_corr:.3e} after_ba={d_ba:.3e} "
+          f"launches={card['launches']} ms: {json.dumps({k: round(v, 3) for k, v in card['ms'].items()})}")
+    check(info.found and info.matched_kf == 0, "the loop was not found against keyframe 0")
+    check(pose_err < 0.05, f"the loop's expected pose is {pose_err} from the truth")
+    check(card["ok"] and card["drift_after"] < card["drift_before"], "the correction did not reduce the drift")
+    check(card["n_after"] <= card["n_before"] - 30 and card["n_after"] == cpu["n_after"],
+          "the seam's duplicates were not fused as on the CPU")
+    check(d_corr <= 1e-3, f"card and CPU keyframe poses differ by {d_corr} after the correction")
+    check(np.isfinite(card["chi"]) and card["chi"] < max(0.5 * card["chi_merged"], 6.0), "global BA did not settle")
+    c = card["launches"]
+    check(c["B2_batched"] == 1 and c["B2"] == 1, f"B2 launches {c} (one batched verification)")
+    check(c["B1"] == len(card["fused"]) > 0, f"B1 launched {c['B1']} times for {len(card['fused'])} seam fusions")
+
+    # globalOptimization on phase 5's pass-1 map, on the card and on the CPU
+    chis, poses = {}, {}
+    for device in ("cuda", "cpu"):
+        slam = UcoSlam(device=device)
+        slam.readFromFile(slam_map_slm, cam)
+        before = slam.map.global_reproj_chi2(cam)
+        t0 = time.perf_counter()
+        slam.globalOptimization()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        chis[device] = (before, slam.map.global_reproj_chi2(cam), time.perf_counter() - t0)
+        poses[device] = slam.map.h("kf_pose")[slam.map.keyframes.active_slots()]
+    (b, a, t), (_, a_cpu, t_cpu) = chis["cuda"], chis["cpu"]
+    d_pose = float(np.abs(poses["cuda"] - poses["cpu"]).max())
+    print(f"[7 global BA] phase 5's map: chi2 {b:.6f} -> {a:.6f} (cpu {a_cpu:.6f}) card_vs_cpu_pose_max_abs="
+          f"{d_pose:.3e} seconds={t:.3f} (cpu {t_cpu:.3f})")
+    check(a < b, "globalOptimization did not lower the chi2")
+    check(abs(a - a_cpu) <= 0.01 * a_cpu, f"card chi2 {a} not within 1% of the CPU's {a_cpu}")
+    check(d_pose <= 1e-3, f"card and CPU keyframe poses differ by {d_pose} after globalOptimization")
+    return dict(launches={k: c[k] for k in ("B1", "B2", "B2_batched")})
 
 
 def main(argv=None) -> int:
@@ -627,15 +1091,37 @@ def main(argv=None) -> int:
         print("chip_smoke: ucoslam_tpu_torch was imported from outside the checkout", file=sys.stderr)
         return 2
 
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def lap(phase):
+        seconds[phase] = round(time.perf_counter() - t_start - sum(seconds.values()), 3)
+
     name = phase_environment()
+    lap("1")
     b1 = phase_b1()
+    lap("2")
     b2 = phase_b2()
+    lap("3")
     scene = load_scene(REF_PATH)
+    lap("render")
     launches = phase_slice(scene)
+    lap("4")
     slam_map, slam_ref = reference_paths(args.frames)
-    slam = phase_slam(scene if args.frames == 60 else load_scene(slam_ref), slam_map)
-    launches = {k: n + slam["launches"][k] for k, n in launches.items()}
-    b1.update(slam["b1_fuse"])
+    with tempfile.TemporaryDirectory() as workdir:
+        slam = phase_slam(scene if args.frames == 60 else load_scene(slam_ref), slam_map, workdir)
+        launches = {k: n + slam["launches"][k] for k, n in launches.items()}
+        b1.update(slam["b1_fuse"])
+        lap("5")
+        if args.frames == 60:  # phases 6 and 7 run on the 60-frame scene
+            recovery = phase_recovery(scene)
+            lap("6")
+            loop = phase_loop(slam["checkpoint"], scene[1])
+            lap("7")
+            launches = {k: n + recovery["launches"][k] + loop["launches"][k] for k, n in launches.items()}
+            b2["launches_batched"] = recovery["launches"]["B2_batched"] + loop["launches"]["B2_batched"]
+            b2.update(reloc_process_ms=recovery["bow"]["reloc_ms"], reloc_bf_process_ms=recovery["bf"]["reloc_ms"])
+    print(f"[time] seconds by phase {json.dumps(seconds)} total={time.perf_counter() - t_start:.1f}")
     check("jax" not in sys.modules, "jax was imported")
     check("ucoslam_tpu" not in sys.modules, "the JAX package ucoslam_tpu was imported")
     kernels = [

@@ -3,19 +3,23 @@ reference's, on a map the reference built: a short JAX SLAM run over
 oracle frames, carried across as numpy arrays. build_ba_problem gives the
 same observation tables; the dense ba_solve (from perturbed poses and
 points) gives poses and points within 1e-4 relative and the same bad
-associations; one MapManager.new_keyframe gives the same keyframe slot and
-the same map-point count."""
+associations; global_bundle_adjustment over the whole map (directly and
+through UcoSlam.globalOptimization) gives the global reprojection chi2
+within 1%; one MapManager.new_keyframe gives the
+same keyframe slot and the same map-point count."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from ucoslam_tpu.api import UcoSlam as RefSlam
 from ucoslam_tpu.config import Params
 from ucoslam_tpu.io import SyntheticSequence as RefSequence
 from ucoslam_tpu.mapping.map import Map as RefMap
 from ucoslam_tpu.optim import ba as ref_ba
 from ucoslam_tpu.slam import System as RefSystem
+from ucoslam_tpu_torch.api import UcoSlam
 from ucoslam_tpu_torch.config import Params as PortParams
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import frame_from_numpy
@@ -113,6 +117,38 @@ def test_ba_solve_dense_equals_reference(run):
     # the LM did real work: the points moved well past the tolerance
     assert np.abs(w_pt - pt_pos).max() > 100 * 1e-4 * np.abs(w_pt).max()
     np.testing.assert_allclose(got.cost_history.numpy(), np.asarray(want.cost_history), rtol=1e-3)
+
+
+@pytest.mark.parametrize("via", ["function", "facade"])
+def test_global_bundle_adjustment_equals_reference(run, via):
+    """global_bundle_adjustment, called directly or through
+    UcoSlam.globalOptimization (as tests/test_api.py uses it)."""
+    seq, sys_, _ = run
+    port_map, ref_copy = _carry(sys_.map)
+    cam = _cam(seq)
+    # both from the same perturbed map: points by ~2%, keyframes but the first by ~1 cm
+    rng = np.random.default_rng(1)
+    st = ref_copy.state
+    pt_pos = np.asarray(st.pt_pos) * (1 + rng.normal(0, 0.02, (st.P, 1))).astype(np.float32)
+    kf_pose = np.asarray(st.kf_pose).copy()
+    kfs = ref_copy.keyframes.active_slots()[1:]
+    kf_pose[kfs, :3, 3] += rng.normal(0, 0.01, (len(kfs), 3)).astype(np.float32)
+    ref_copy.state = st._replace(pt_pos=jnp.asarray(pt_pos), kf_pose=jnp.asarray(kf_pose))
+    port_map.state = port_map.state.replace(pt_pos=torch.from_numpy(pt_pos), kf_pose=torch.from_numpy(kf_pose))
+    chi_before = port_map.global_reproj_chi2(cam)
+    assert abs(chi_before - ref_copy.global_reproj_chi2(seq.cam)) <= 1e-4 * chi_before
+    if via == "function":
+        ref_ba.global_bundle_adjustment(ref_copy, seq.cam, n_iters=10)
+        ba.global_bundle_adjustment(port_map, cam, n_iters=10)
+    else:
+        ref_slam, slam = RefSlam(), UcoSlam(device="cpu")
+        ref_slam.setParams(ref_copy, PARAMS, seq.cam)
+        slam.setParams(port_map, PORT_PARAMS, cam)
+        ref_slam.globalOptimization(n_iters=10)
+        slam.globalOptimization(n_iters=10)
+    chi_ref, chi = ref_copy.global_reproj_chi2(seq.cam), port_map.global_reproj_chi2(cam)
+    assert chi < 0.5 * chi_before
+    assert abs(chi - chi_ref) <= 0.01 * chi_ref, (chi, chi_ref)
 
 
 def test_new_keyframe_equals_reference(run):

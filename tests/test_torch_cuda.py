@@ -152,6 +152,37 @@ def test_lm_kernel_rejects_too_many_rows(card):
         lm_kernel.motion_only_lm_fused(*args, 500.0, 500.0, 320.0, 240.0, **kw)
 
 
+# C=5, B=2048: candidate verification's batch; C=1, B=16384: the
+# brute-force relocalization's arena; C=3, B=200: fewer rows than threads
+@pytest.mark.parametrize("C,B", [(5, 2048), (1, 16384), (3, 200)])
+def test_lm_kernel_batched_equals_plain(card, C, B):
+    args = chip_smoke.b2_batch_inputs(card, C, B)
+    cam = (500.0, 500.0, 320.0, 240.0)
+    before = (lm_kernel.launches, lm_kernel.batched_launches)
+    pose_k, inl_k = lm_kernel.motion_only_lm_fused_batched(*args, *cam, iters=10, rounds=2)
+    assert (lm_kernel.launches, lm_kernel.batched_launches) == (before[0] + 1, before[1] + 1)
+    pose_p, inl_p = lm_kernel.motion_only_lm_plain_batched(*args, *cam, iters=10, rounds=2)
+    assert float((pose_k - pose_p).abs().max()) < 1e-4
+    assert torch.equal(inl_k, inl_p)
+    # each problem bit-equal to its own single launch
+    for c in range(C):
+        pose_1, inl_1 = lm_kernel.motion_only_lm_fused(*(a[c] for a in args), *cam, iters=10, rounds=2)
+        assert torch.equal(pose_1, pose_k[c]) and torch.equal(inl_1, inl_k[c])
+
+
+def test_lm_kernel_batched_rejects_bad_input(card):
+    args = chip_smoke.b2_batch_inputs(card, 2, 300)
+    cam = (500.0, 500.0, 320.0, 240.0)
+    with pytest.raises(ValueError, match="shape"):
+        lm_kernel.motion_only_lm_fused_batched(args[0], args[1][0], *args[2:], *cam)
+    with pytest.raises(ValueError, match="shape"):
+        lm_kernel.motion_only_lm_fused_batched(args[0][:1], *args[1:], *cam)
+    limit = lm_kernel._library().motion_only_lm_max_rows()
+    big = chip_smoke.b2_batch_inputs(card, 1, limit + 1)
+    with pytest.raises(ValueError, match="rows"):
+        lm_kernel.motion_only_lm_fused_batched(*big, *cam)
+
+
 def test_match_kernel_equals_plain_at_fuse_inputs(card):
     """The duplicate fusion's call: the whole 16384-point arena against one
     keyframe's 2048 keypoints at a 3 px radius (scaled by octave), the live

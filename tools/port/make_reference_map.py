@@ -21,6 +21,21 @@ With `--init-seeds N`, runs only pass 1, once for each of N keys of the
 two-view init's draws (0x1717, the package's own, then 1, 2, ...), and
 writes `mono[F]_init_spread_jax.json` (per key: tracked frames, ATE,
 keyframes, points), the JAX side of `tools/port/slam_spread.py`.
+
+The recovery scenarios (60 frames; any of the flags, run in turn), each
+written to `mono_<name>_jax.json` with per-frame poses and counts:
+
+- `--reloc` (`reloc`): `readFromFile(mono_map.slm)` -> `setMode(LOCALIZATION)`
+  -> the reverse sweep with `resetTracker()` before each of RESET_FRAMES, so
+  each of those frames goes through BoW relocalization;
+- `--reloc-brute-force` (`reloc_bf`): the same with the keyframe database
+  marked dummy, so relocalization matches against the whole point arena;
+- `--gap` (`gap`): pass 1 with `resetTracker()` in place of GAP_FRAMES (they
+  are not processed), so the frames after the gap relocalize;
+- `--reseed` (`reseed`): pass 1 over SPLICE: frames 0..29 of the `mono`
+  sequence, then frames 30..59 of another scene, which relocalization cannot
+  match; after `reseedAfterLostFrames` lost frames the system two-view
+  re-seeds a new map segment.
 """
 
 from __future__ import annotations
@@ -31,6 +46,7 @@ import os
 
 import numpy as np
 
+from chip_smoke import reseed_frame
 from ucoslam_tpu.api import UcoSlam
 from ucoslam_tpu.config import Mode, Params
 from ucoslam_tpu.geometry.camera import CameraParams
@@ -40,6 +56,12 @@ from ucoslam_tpu.io.synthetic import SyntheticSequence
 SEQUENCE = dict(n_frames=60, n_points=1600, seed=5)  # tools/parity/run_parity.py `mono`
 CAMERA = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480)
 PARAMS = Params().replace(detectMarkers=False, maxDescDistance=60.0)
+#: reverse-sweep frames preceded by resetTracker() in the relocalization scenarios
+RESET_FRAMES = (59, 50, 40, 30, 20, 10)
+#: frames skipped, each with a resetTracker(), in the gap scenario
+GAP_FRAMES = tuple(range(30, 34))
+#: the re-seed scenario's images: frame i < at of SEQUENCE, else frame i of `sequence`
+SPLICE = dict(at=30, sequence=dict(n_frames=60, n_points=1600, seed=6))
 
 
 def camera_center(pose_f2g: np.ndarray) -> np.ndarray:
@@ -120,11 +142,62 @@ def init_spread(params: Params, cam: CameraParams, seq: SyntheticSequence, n_key
     return runs
 
 
+def splice_images(cam: CameraParams, seq: SyntheticSequence) -> list:
+    other = SyntheticSequence(cam=cam, **SPLICE["sequence"])
+    return [seq.render(i) if i < SPLICE["at"] else other.render(i) for i in range(seq.n_frames)]
+
+
+def poses_json(poses: dict) -> dict:
+    return {str(i): np.asarray(poses[i]).tolist() for i in sorted(poses)}
+
+
+def recovery(name: str, params: Params, cam: CameraParams, seq: SyntheticSequence, map_path: str) -> dict:
+    """One recovery scenario of the module docstring -> its summary."""
+    slam = UcoSlam()
+    if name.startswith("reloc"):
+        slam.readFromFile(map_path, cam)
+        slam.setMode(Mode.LOCALIZATION)
+        if name == "reloc_bf":
+            slam._system.manager.kfdb.dummy = True
+        frames, images = list(reversed(range(seq.n_frames))), None
+    else:
+        slam.setParams(None, params, cam)
+        frames = list(range(seq.n_frames))
+        images = splice_images(cam, seq) if name == "reseed" else None
+    poses = {}
+    for i in frames:
+        if i in (RESET_FRAMES if name.startswith("reloc") else GAP_FRAMES if name == "gap" else ()):
+            slam.resetTracker()
+            if name == "gap":
+                continue
+        img = images[i] if images is not None else seq.render(i)
+        pose = slam.process(img, fseq=i)
+        if pose is not None:
+            poses[i] = np.asarray(pose, np.float32)
+    out = {"tracked": len(poses), "poses": poses_json(poses)}
+    if name.startswith("reloc"):
+        out.update(reset_frames=list(RESET_FRAMES), relocalized=sum(i in poses for i in RESET_FRAMES),
+                   ate=ate_of(poses, seq))
+    elif name == "gap":
+        after = GAP_FRAMES[-1] + 1
+        out.update(gap_frames=list(GAP_FRAMES), tracked_after_gap=sum(i >= after for i in poses),
+                   ate=ate_of(poses, seq), map_signature=slam.map.signature())
+    else:
+        log = slam._system.stats_log
+        at = reseed_frame(log, params.reseedAfterLostFrames)
+        out.update(splice=SPLICE, reseed_frame=at, n_keyframes=slam.map.n_keyframes,
+                   tracked_after_reseed=None if at is None else sum(i > at for i in poses),
+                   stats_log=[{k: e[k] for k in ("fseq", "tracked", "n_kf")} for e in log])
+    return out
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default="data/torch_port")
     ap.add_argument("--frames", type=int, default=SEQUENCE["n_frames"])
     ap.add_argument("--init-seeds", type=int, default=0)
+    for flag in ("reloc", "reloc-brute-force", "gap", "reseed"):
+        ap.add_argument(f"--{flag}", action="store_true", help="a recovery scenario (see above)")
     args = ap.parse_args(argv)
 
     os.makedirs(args.out_dir, exist_ok=True)
@@ -139,6 +212,16 @@ def main(argv=None) -> None:
             json.dump({"sequence": sequence, "runs": runs}, f, indent=1)
         return
     map_path = os.path.join(args.out_dir, f"{name}_map.slm")
+    chosen = [n for n, on in (("reloc", args.reloc), ("reloc_bf", args.reloc_brute_force),
+                              ("gap", args.gap), ("reseed", args.reseed)) if on]
+    for scenario in chosen:
+        out = {"sequence": sequence, "camera": CAMERA, "scenario": scenario,
+               **recovery(scenario, PARAMS, cam, seq, map_path)}
+        with open(os.path.join(args.out_dir, f"{name}_{scenario}_jax.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        print(json.dumps({k: v for k, v in out.items() if k not in ("poses", "stats_log")}), flush=True)
+    if chosen:
+        return
     summary, rev = run(PARAMS, cam, seq, map_path)
     out = {
         "sequence": sequence,

@@ -1,0 +1,120 @@
+"""Run the PyTorch port on a parity scenario, through the two-pass harness.
+
+The scenarios are `tools/parity/run_parity.py`'s, rebuilt with the port's
+own `SyntheticSequence` (that script imports the JAX package): `mono` (60
+frames, 1600 points) and `loop_easy` (240 frames, 2200 points, the
+`sweep_back` trajectory that returns to its start), on the sequence's own
+camera. The protocol is `ucoslam_tpu/apps/test_sequence.py`'s, with its
+default parameters (maxMapPoints 8192, maxKeyFrames 64, 1024 keypoints,
+maxDescDistance 60; marker detection off, as the scenes hold no markers):
+pass 1 maps the rendered frames in SLAM mode, then `globalOptimization`,
+save; pass 2 reads the checkpoint, `setMode(LOCALIZATION)`,
+`resetTracker()` and localizes the frames again. It prints per pass the
+frames tracked, the ATE (Horn, scale-aligned) and the median ms per frame
+(host clock to a device synchronize), and pass 1's loop candidates, loops
+closed, keyframes and points, with the card's name and power limit:
+
+    python3 tools/port/run_scenario.py --scenario loop_easy [--out FILE]
+
+Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+sys.path.insert(0, REPO)
+
+import chip_smoke  # noqa: E402
+from ucoslam_tpu_torch.api import UcoSlam  # noqa: E402
+from ucoslam_tpu_torch.config import Mode, Params  # noqa: E402
+from ucoslam_tpu_torch.io.synthetic import SyntheticSequence  # noqa: E402
+
+SCENARIOS = {
+    "mono": dict(n_frames=60, n_points=1600, seed=5),
+    "loop_easy": dict(n_frames=240, n_points=2200, seed=5, trajectory="sweep_back"),
+}
+PARAMS = Params().replace(maxMapPoints=8192, maxKeyFrames=64, maxKeyPointsPerFrame=1024, maxDescDistance=60.0,
+                          detectMarkers=False)
+
+
+def timed_pass(slam: UcoSlam, images) -> tuple[dict, list]:
+    poses, ms = {}, []
+    for i, img in enumerate(images):
+        t0 = time.perf_counter()
+        pose = slam.process(img, fseq=i)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        if pose is not None:
+            poses[i] = pose
+    return poses, ms
+
+
+def run(name: str) -> dict:
+    seq = SyntheticSequence(**SCENARIOS[name])
+    images = [seq.render(i) for i in range(seq.n_frames)]
+    slam = UcoSlam(device="cuda")
+    slam.setParams(None, PARAMS, seq.cam)
+    t0 = time.perf_counter()
+    p1, ms1 = timed_pass(slam, images)
+    t_ba = time.perf_counter()
+    slam.globalOptimization()
+    torch.cuda.synchronize()
+    t_ba = time.perf_counter() - t_ba
+    t_map = time.perf_counter() - t0
+    mgr = slam._system.manager
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "map.slm")
+        slam.saveToFile(path)
+        loc = UcoSlam(device="cuda")
+        loc.readFromFile(path, seq.cam)
+    loc.setMode(Mode.LOCALIZATION)
+    loc.resetTracker()
+    p2, ms2 = timed_pass(loc, images)
+    n = seq.n_frames
+    return dict(
+        scenario=name, sequence=SCENARIOS[name], frames=n,
+        pass1=dict(tracked=len(p1), tracked_pct=len(p1) / n, ate=chip_smoke.ate_of(p1, seq) if len(p1) >= 3 else None,
+                   ms_median=float(np.median(ms1)), ms_mean=float(np.mean(ms1)), seconds=t_map,
+                   global_ba_s=t_ba, loop_queries=mgr.loop_detector.n_queries,
+                   loop_candidates=mgr.loop_detector.n_candidates, loops_closed=mgr.loop_closures,
+                   relocalizations=slam._system.tracker.n_relocalizations,
+                   keyframes=slam.map.n_keyframes, points=slam.map.n_points),
+        pass2=dict(tracked=len(p2), tracked_pct=len(p2) / n, ate=chip_smoke.ate_of(p2, seq) if len(p2) >= 3 else None,
+                   ms_median=float(np.median(ms2))),
+    )
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--scenario", choices=sorted(SCENARIOS), default="loop_easy")
+    ap.add_argument("--out", default=None, help="also write the JSON result here")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("run_scenario: no CUDA device")
+    from ucoslam_tpu_torch.slam.system import disable_tf32
+
+    disable_tf32()
+    out = run(args.scenario)
+    out["device"] = torch.cuda.get_device_name(0)
+    out["nvidia_smi"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                                       capture_output=True, text=True, timeout=60).stdout.strip()
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

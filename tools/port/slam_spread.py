@@ -12,6 +12,13 @@ points and insertions, beside the JAX package's one run; then the spread.
     python3 tools/port/slam_spread.py --frames 150 --seeds 5 [--out FILE]
 
 Seeds: 0x1717 (the port's own) and 1, 2, ... Needs a CUDA device.
+
+`--compare PORT_JSON` (no device needed) holds a written summary against the
+JAX package's spread over its own draws (`--jax`, default
+`data/torch_port/mono_init_spread_jax.json`, from
+`tools/port/make_reference_map.py --init-seeds N`): each side's ATE median
+and range, how many of the port/JAX pairs favour JAX, and the two-sided
+Mann-Whitney U test of the two ATE samples (scipy; U is the port's).
 """
 
 from __future__ import annotations
@@ -53,12 +60,34 @@ def pass1(scene, params: Params, seed: int, device="cuda") -> dict:
                 insertions=slam._system.manager.n_insertions, seconds=time.perf_counter() - t0)
 
 
+def compare(port_json: str, jax_json: str) -> dict:
+    """The port's ATE spread against the JAX package's (module docstring)."""
+    from scipy.stats import mannwhitneyu
+
+    with open(port_json) as f:
+        port = [r["ate"] for r in json.load(f)["runs"] if r["ate"] is not None]
+    with open(jax_json) as f:
+        jax_ates = [r["ate"] for r in json.load(f)["runs"] if r["ate"] is not None]
+    test = mannwhitneyu(port, jax_ates, alternative="two-sided")
+    return dict(
+        port=dict(n=len(port), median=float(np.median(port)), min=min(port), max=max(port)),
+        jax=dict(n=len(jax_ates), median=float(np.median(jax_ates)), min=min(jax_ates), max=max(jax_ates)),
+        pairs_favouring_jax=sum(p > j for p in port for j in jax_ates), pairs=len(port) * len(jax_ates),
+        mann_whitney_u=float(test.statistic), p_two_sided=float(test.pvalue),
+    )
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--frames", type=int, default=60, choices=(60, 150))
     ap.add_argument("--seeds", type=int, default=5)
     ap.add_argument("--out", default=None, help="also write the JSON summary here")
+    ap.add_argument("--compare", metavar="PORT_JSON", default=None, help="compare a written summary with --jax")
+    ap.add_argument("--jax", default=os.path.join(REPO, "data", "torch_port", "mono_init_spread_jax.json"))
     args = ap.parse_args(argv)
+    if args.compare:
+        print(json.dumps(compare(args.compare, args.jax)))
+        return
     if not torch.cuda.is_available():
         raise SystemExit("slam_spread: no CUDA device")
     from ucoslam_tpu_torch.slam.system import disable_tf32

@@ -9,10 +9,13 @@ CUDA tensor (`ops/cuda`). On a CPU tensor every kernel wrapper runs its plain
 PyTorch version instead, which is what the CPU tests exercise.
 
 Ported so far: monocular SLAM in sequential mode (`UcoSlam.setParams` ->
-`process(img)` per frame -> `saveToFile`) and LOCALIZATION against a saved
-map (`readFromFile` -> `setMode(Mode.LOCALIZATION)` -> `process(img)`).
-Relocalization, markers, stereo/RGB-D input, loop correction, global BA
-and the async mapper are not ported yet (ROADMAP.md, Queue 1).
+`process(img)` per frame -> `saveToFile`), LOCALIZATION against a saved
+map (`readFromFile` -> `setMode(Mode.LOCALIZATION)` -> `process(img)`),
+relocalization after `resetTracker()` or a lost frame, the re-seed of a new
+map segment after a long loss, keypoint loop closure and
+`globalOptimization`. Markers, stereo/RGB-D input, the point-major BA, the
+async mapper and `.fbow` vocabularies are not ported yet (ROADMAP.md,
+Queue 1 items 3, 4, 6 and 7).
 
 This package imports neither jax nor anything of `ucoslam_tpu`: `Params`,
 `Mode` and `TrackingState` are its own (`ucoslam_tpu_torch.config`).

@@ -4,9 +4,10 @@ Port of `ucoslam_tpu/api.py` for monocular sequential SLAM and
 LOCALIZATION: `setParams` (a fresh map, or one passed in) -> `process` per
 frame -> `saveToFile` (map, tracker state, keyframe database, extractor
 sensitivity); `readFromFile` restores all of it; `setMode`,
-`updateParams`, `resetTracker` and the pose and signature queries. Stereo
-and RGB-D input, markers, `.fbow` vocabularies and `globalOptimization`
-are not ported yet (ROADMAP.md, Queue 1).
+`updateParams`, `resetTracker` (the next frame relocalizes),
+`globalOptimization` (full-map BA) and the pose and signature queries.
+Stereo and RGB-D input, markers and `.fbow` vocabularies are not ported yet
+(ROADMAP.md, Queue 1 items 3, 4 and 7).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from ucoslam_tpu_torch.io.serialize import load_map, load_map_extra_arrays, load
 from ucoslam_tpu_torch.mapping.frame import Frame
 from ucoslam_tpu_torch.mapping.kfdatabase import KeyFrameDataBase
 from ucoslam_tpu_torch.mapping.map import Map
+from ucoslam_tpu_torch.optim.ba import global_bundle_adjustment
 from ucoslam_tpu_torch.slam.system import NOT_PORTED_MARKERS, System
 
 
@@ -61,6 +63,10 @@ class UcoSlam:
 
     def resetTracker(self) -> None:
         self._system.reset_tracker()
+
+    def globalOptimization(self, n_iters: int | None = None) -> None:
+        """Full bundle adjustment over the map."""
+        global_bundle_adjustment(self._map, self._system.cam, n_iters=n_iters or self._params.baIters)
 
     def saveToFile(self, path: str) -> None:
         """Full session checkpoint: map, motion model, counters, keyframe

@@ -60,6 +60,15 @@
 // - In the pass, 1/z uses the fast reciprocal and the Huber weight
 //   sqrt(delta2) * rsqrt(chi2); the re-classification keeps IEEE division.
 //
+// Batched over problems (the counterpart of jax.vmap over the pallas_call,
+// as relocalization and loop verification refine up to 5 candidate poses at
+// once): one launch of n_problems clusters, cluster p solving problem p with
+// the algorithm above, unchanged. Problem p's rows are rows p*B .. p*B+B-1 of
+// the stacked inputs, its start and result poses entries p of (n, 4, 4). The
+// clusters never communicate, so n clusters fill n x C SMs side by side (five
+// single launches would run one after another on 8 of the 132 SMs). The
+// single launch is the batched one with n_problems = 1.
+//
 // The block size T and the cluster size C are template parameters. The
 // library holds one launch, kThreads x kCluster. Built with
 // -DUCOSLAM_VARIANTS (tools/port/kernel_builds.py) it also holds the other
@@ -104,6 +113,7 @@ constexpr int kThreads = 256;  // the default launch: a cluster of 8 blocks of 2
 constexpr int kCluster = 8;
 constexpr int kMaxRowsPerBlock = 6000;
 constexpr int kRowBytes = 8 * 4 + 2 + 1 + 1;  // 8 floats, act index, mask, valid
+constexpr int kMaxProblems = 4096;  // clusters a batched launch takes
 constexpr int kMaxCounts = 192;  // inlier counts per (chunk of T rows, warp): 6000 / 32 rounded up
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -446,6 +456,11 @@ __global__ void __launch_bounds__(T) motion_only_lm_kernel(
 
   PROBE_INIT
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int prob = blockIdx.x / C;  // the cluster's place in the grid
+  const size_t base = static_cast<size_t>(prob) * pb.B;  // its first row of the stacked inputs
+  pose_in += 16 * prob;
+  pose_out += 16 * prob;
+  mask_out += base;
   int rank = 0;
   if constexpr (C > 1) rank = static_cast<int>(cg::this_cluster().block_rank());
   const int cap_rows = (pb.B + C - 1) / C;
@@ -456,7 +471,7 @@ __global__ void __launch_bounds__(T) motion_only_lm_kernel(
 
   // ---- the rows, once: thread t owns rows t, t + T, ... ----
   for (int i = tid; i < n; i += T) {
-    const int g = row0 + i;
+    const size_t g = base + row0 + i;
     R.X0[i] = pb.X[3 * g];
     R.X1[i] = pb.X[3 * g + 1];
     R.X2[i] = pb.X[3 * g + 2];
@@ -624,16 +639,17 @@ cudaError_t raise_smem_limit() {
 }
 
 template <int T, int C>
-int launch(const Problem& pb, const float* pose_in, int iters, int rounds, float* pose_out,
+int launch(const Problem& pb, int n_problems, const float* pose_in, int iters, int rounds, float* pose_out,
            uint8_t* mask_out, cudaStream_t stream) {
   const int cap_rows = (pb.B + C - 1) / C;
-  if (cap_rows > kMaxRowsPerBlock) return static_cast<int>(cudaErrorInvalidValue);
+  if (cap_rows > kMaxRowsPerBlock || n_problems < 1 || n_problems > kMaxProblems)
+    return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = motion_only_lm_kernel<T, C>;
   const int smem = cap_rows * kRowBytes;
   cudaError_t err = raise_smem_limit<T, C>();
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C);
+  cfg.gridDim = dim3(C * n_problems);
   cfg.blockDim = dim3(T);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -671,8 +687,10 @@ Problem make_problem(const void* X, const void* uv, const void* sigma2, const vo
 
 }  // namespace
 
-// Largest B a launch takes; the wrapper raises above it.
+// Largest B a launch takes, and most problems a batched launch takes; the
+// wrapper raises above them.
 extern "C" int motion_only_lm_max_rows() { return kMaxRowsPerBlock * kCluster; }
+extern "C" int motion_only_lm_max_problems() { return kMaxProblems; }
 
 // Plain C entry point: one launch of kThreads x kCluster. `depth` may be null
 // when has_depth is 0. Launches on `stream` and returns the cudaError_t of the
@@ -683,7 +701,21 @@ extern "C" int motion_only_lm_launch(
     float cy, float bf, float delta2, int iters, int rounds, int has_depth,
     void* pose_out, void* mask_out, void* stream) {
   const Problem pb = make_problem(X, uv, sigma2, valid, depth, B, fx, fy, cx, cy, bf, delta2, has_depth);
-  return launch<kThreads, kCluster>(pb, static_cast<const float*>(pose_in), iters, rounds,
+  return launch<kThreads, kCluster>(pb, 1, static_cast<const float*>(pose_in), iters, rounds,
+                                    static_cast<float*>(pose_out), static_cast<uint8_t*>(mask_out),
+                                    static_cast<cudaStream_t>(stream));
+}
+
+// The batched launch: n_problems problems of B rows each, stacked (pose_in
+// and pose_out (n, 4, 4); X (n, B, 3); uv (n, B, 2); sigma2, valid, depth
+// and mask_out (n, B)); one cluster of kCluster blocks a problem.
+extern "C" int motion_only_lm_launch_batched(
+    const void* pose_in, const void* X, const void* uv, const void* sigma2,
+    const void* valid, const void* depth, int n_problems, int B, float fx, float fy,
+    float cx, float cy, float bf, float delta2, int iters, int rounds, int has_depth,
+    void* pose_out, void* mask_out, void* stream) {
+  const Problem pb = make_problem(X, uv, sigma2, valid, depth, B, fx, fy, cx, cy, bf, delta2, has_depth);
+  return launch<kThreads, kCluster>(pb, n_problems, static_cast<const float*>(pose_in), iters, rounds,
                                     static_cast<float*>(pose_out), static_cast<uint8_t*>(mask_out),
                                     static_cast<cudaStream_t>(stream));
 }
@@ -703,7 +735,7 @@ extern "C" int motion_only_lm_launch_variant(
   uint8_t* mout = static_cast<uint8_t*>(mask_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define UCOSLAM_LM_CASE(TT, CC) \
-  if (threads == TT && cluster == CC) return launch<TT, CC>(pb, pin, iters, rounds, pout, mout, s);
+  if (threads == TT && cluster == CC) return launch<TT, CC>(pb, 1, pin, iters, rounds, pout, mout, s);
   UCOSLAM_LM_CASE(256, 1)
   UCOSLAM_LM_CASE(512, 1)
   UCOSLAM_LM_CASE(1024, 1)

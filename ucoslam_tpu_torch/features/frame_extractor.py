@@ -29,7 +29,7 @@ class FrameExtractor:
             unported.append("autoAdjustKpSensitivity")
         if unported:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(unported)} (ROADMAP.md, Queue 1)"
+                f"not ported yet: {', '.join(unported)} (ROADMAP.md, Queue 1 item 7: frontend options)"
             )
         self.params = params
         self.cam = cam

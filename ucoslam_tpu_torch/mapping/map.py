@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ucoslam_tpu_torch.config import Params
+from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.arena import Arena
 from ucoslam_tpu_torch.mapping.frame import MAX_MARKERS_PER_FRAME, Frame, fetch_to_host, tensor_from_numpy
 
@@ -511,6 +512,57 @@ class Map:
         if "covis_matrix" not in self._host_cache:
             self._host_cache["covis_matrix"] = op_covis_matrix(self.state).cpu().numpy()
         return self._host_cache["covis_matrix"]
+
+    def essential_graph(self, min_weight: int = 15) -> list[tuple[int, int, float]]:
+        """Essential graph over the active keyframes: the maximum spanning
+        tree of the covisibility graph (Kruskal; equal weights keep the
+        candidates' order: covisible pairs in row-major order, then the
+        temporal bridges) plus every edge of weight >= min_weight.
+        Disconnected covisibility components are bridged by weight-1 edges
+        between keyframes adjacent in time, so the result always spans.
+        -> (slot_a, slot_b, weight) with slot_a < slot_b."""
+        slots = self.keyframes.active_slots()
+        if len(slots) < 2:
+            return []
+        covis = self.covis_matrix()
+        order = np.argsort(self.h("kf_fseq")[slots])
+        sub = covis[np.ix_(slots, slots)]
+        ia, ib = np.nonzero(np.triu(sub, 1) > 0)
+        cand = {(int(slots[x]), int(slots[y])): float(sub[x, y]) for x, y in zip(ia, ib)}
+        for x, y in zip(order[:-1], order[1:]):
+            a, b = sorted((int(slots[x]), int(slots[y])))
+            cand.setdefault((a, b), 1.0)
+        parent = {int(s): int(s) for s in slots}
+
+        def find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        edges = []
+        for (a, b), w in sorted(cand.items(), key=lambda kv: -kv[1]):
+            ra, rb = find(a), find(b)
+            if ra != rb:
+                parent[rb] = ra
+                edges.append((a, b, w))
+        tree = {(a, b) for a, b, _ in edges}
+        edges += [(a, b, w) for (a, b), w in cand.items() if w >= min_weight and (a, b) not in tree]
+        return edges
+
+    def global_reproj_chi2(self, cam: CameraParams) -> float:
+        """Mean reprojection chi2 over every observation of an active
+        keyframe with a valid keypoint and positive depth."""
+        st = self.state
+        ids = st.kf_ids
+        pt = st.pt_pos[ids.clamp(min=0).long()]  # (K, N, 3)
+        cam_pts = torch.einsum("kij,knj->kni", st.kf_pose[:, :3, :3], pt) + st.kf_pose[:, None, :3, 3]
+        r = cam.project(cam_pts) - st.kf_xy
+        log_sf = torch.log(torch.tensor(1.2, dtype=torch.float32, device=ids.device))
+        chi2 = (r * r).sum(-1) / torch.exp(2.0 * st.kf_octave.to(torch.float32) * log_sf)
+        ok = (ids >= 0) & st.kf_active[:, None] & st.kf_kpt_valid & (cam_pts[..., 2] > 0)
+        total = torch.where(ok, chi2, 0.0).sum()
+        return float(total / ok.sum().clamp(min=1))
 
     def point_observation_counts(self) -> np.ndarray:
         if "point_obs_counts" not in self._host_cache:

@@ -1,12 +1,12 @@
 """Frame-to-frame descriptor matching with ratio, orientation and epipolar gates.
 
 Port of `ucoslam_tpu/matching/matcher.py` (`match_frames`,
-`match_frames_epipolar`): one dense Hamming matrix, Lowe's ratio test, the
-rotation-consistency histogram (3 dominant bins), and one query per train
-column. `match_frames_epipolar` also takes a batch of train frames along a
-leading axis (the mapper's covisible neighbours, all in one pass). Ties go
-to the lowest index everywhere, as in the reference. `match_frames_bow`
-waits for relocalization (ROADMAP.md, Queue 1 item 2).
+`match_frames_epipolar`, `match_frames_bow`): one dense Hamming matrix,
+Lowe's ratio test, the rotation-consistency histogram (3 dominant bins), and
+one query per train column. `match_frames_epipolar` also takes a batch of
+train frames along a leading axis (the mapper's covisible neighbours, all in
+one pass); `match_frames_bow` admits only pairs quantized to the same
+vocabulary word. Ties go to the lowest index everywhere, as in the reference.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ import torch
 from ucoslam_tpu_torch.config import CHI2_1D
 from ucoslam_tpu_torch.geometry.epipolar import epipolar_line_sq_dist
 from ucoslam_tpu_torch.mapping.frame import Frame
+from ucoslam_tpu_torch.mapping.kfdatabase import quantize_words
 from ucoslam_tpu_torch.ops.fast import stable_topk
 from ucoslam_tpu_torch.ops.hamming import (
     INVALID_DIST,
@@ -115,3 +116,21 @@ def match_frames_epipolar(
         idx, best, second, v1, f1.angle, f2.angle.expand(idx.shape[:-1] + f2.angle.shape[-1:]),
         max_desc_dist, nn_ratio, True, f2.desc.shape[-2],
     )
+
+
+def match_frames_bow(
+    f1: Frame,
+    f2: Frame,
+    vocab: torch.Tensor,  # (V, 8) int32 vocabulary words
+    max_desc_dist: float,
+    nn_ratio: float = 0.8,
+    check_rotation: bool = True,
+) -> FrameMatches:
+    """Word-aligned matching: only descriptor pairs quantized to the same
+    vocabulary word are candidates (the fBow2 node-aligned iteration as an
+    equality mask over word ids)."""
+    word_ok = quantize_words(f1.desc, vocab)[:, None] == quantize_words(f2.desc, vocab)[None, :]
+    idx, best, second = match_best2(
+        hamming_matrix(f1.desc, f2.desc), valid_rows=f1.valid, valid_cols=f2.valid, extra_mask=word_ok
+    )
+    return _accept(idx, best, second, f1.valid, f1.angle, f2.angle, max_desc_dist, nn_ratio, check_rotation, f2.n)

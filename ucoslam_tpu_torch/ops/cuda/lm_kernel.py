@@ -1,10 +1,11 @@
-"""Kernel B2: fused robust motion-only LM for one camera pose.
+"""Kernel B2: fused robust motion-only LM for one camera pose, or a batch.
 
-Port of `ucoslam_tpu/ops/pallas/lm_kernel.py::motion_only_lm_fused`. The
-CUDA kernel is `csrc/lm_kernel.cu`; its source note says what bounds it on
-the card and how the design answers that. `motion_only_lm_plain` is the same
-computation in plain PyTorch, CG(8) solve included: the CPU path and the
-kernel's reference. It keeps every decision on the device (no host sync).
+Port of `ucoslam_tpu/ops/pallas/lm_kernel.py::motion_only_lm_fused`, and
+(`motion_only_lm_fused_batched`) of `jax.vmap` over it. The CUDA kernel is
+`csrc/lm_kernel.cu`; its source note says what bounds it on the card and how
+the design answers that. `motion_only_lm_plain` is the same computation in
+plain PyTorch, CG(8) solve included: the CPU path and the kernel's
+reference. It keeps every decision on the device (no host sync).
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from ucoslam_tpu_torch.optim.robust import huber_weight
 
 #: launches of the CUDA kernel in this process (the plain version does not count)
 launches = 0
+#: of those, the batched launches (motion_only_lm_fused_batched)
+batched_launches = 0
 
 
 def _f32(x) -> float:
@@ -172,11 +175,82 @@ def motion_only_lm_fused(
     return pose, mask.view(torch.bool)
 
 
+def motion_only_lm_plain_batched(
+    pose_init, pts3d, uv, sigma2, valid, fx, fy, cx, cy,
+    depth=None, bf=None, iters=10, rounds=4, has_depth=False,
+):
+    """motion_only_lm_plain over the leading axis of (C, ...) inputs.
+    -> (pose (C, 4, 4), inliers (C, B) bool)."""
+    outs = [
+        motion_only_lm_plain(
+            pose_init[c], pts3d[c], uv[c], sigma2[c], valid[c], fx, fy, cx, cy,
+            depth=None if depth is None else depth[c], bf=bf, iters=iters, rounds=rounds,
+            has_depth=has_depth,
+        )
+        for c in range(pts3d.shape[0])
+    ]
+    return torch.stack([o[0] for o in outs]), torch.stack([o[1] for o in outs])
+
+
+def motion_only_lm_fused_batched(
+    pose_init, pts3d, uv, sigma2, valid, fx, fy, cx, cy,
+    depth=None, bf=None, iters=10, rounds=4, has_depth=False,
+):
+    """B2 over C independent problems of B rows in ONE launch (a cluster a
+    problem) for CUDA tensors; the plain version, problem by problem, for
+    CPU tensors. pose_init (C, 4, 4), pts3d (C, B, 3), uv (C, B, 2),
+    sigma2 (C, B) float32; valid (C, B) bool; depth (C, B) float32 or None.
+    Returns (pose (C, 4, 4), inliers (C, B) bool)."""
+    args = (pose_init, pts3d, uv, sigma2, valid, fx, fy, cx, cy)
+    kw = dict(depth=depth, bf=bf, iters=iters, rounds=rounds, has_depth=has_depth)
+    if pts3d.device.type == "cpu":
+        return motion_only_lm_plain_batched(*args, **kw)
+    dev = pts3d.device
+    if dev.type != "cuda":
+        raise ValueError(f"motion_only_lm_fused_batched runs on CPU or CUDA tensors, not {dev}")
+    if has_depth and depth is None:
+        raise ValueError("has_depth needs a depth tensor")
+    if pts3d.dim() != 3:
+        raise ValueError(f"pts3d has shape {tuple(pts3d.shape)}, expected (C, B, 3)")
+    global launches, batched_launches
+    C, B = pts3d.shape[:2]
+    tensors = dict(
+        pose_init=(pose_init, torch.float32, (C, 4, 4)), pts3d=(pts3d, torch.float32, (C, B, 3)),
+        uv=(uv, torch.float32, (C, B, 2)), sigma2=(sigma2, torch.float32, (C, B)),
+        valid=(valid, torch.bool, (C, B)),
+    )
+    if has_depth:
+        tensors["depth"] = (depth, torch.float32, (C, B))
+    cuda.check_cuda_args(dev, **tensors)
+    lib = _library()
+    max_rows, max_problems = lib.motion_only_lm_max_rows(), lib.motion_only_lm_max_problems()
+    if B > max_rows or not 1 <= C <= max_problems:
+        raise ValueError(
+            f"motion_only_lm takes 1..{max_problems} problems of at most {max_rows} rows, got C={C}, B={B}"
+        )
+    pose = torch.empty(C, 4, 4, dtype=torch.float32, device=dev)
+    mask = torch.empty(C, B, dtype=torch.uint8, device=dev)
+    err = lib.motion_only_lm_launch_batched(
+        pose_init.data_ptr(), pts3d.data_ptr(), uv.data_ptr(), sigma2.data_ptr(),
+        valid.data_ptr(), depth.data_ptr() if has_depth else None, C, B,
+        _f32(fx), _f32(fy), _f32(cx), _f32(cy), _f32(bf if bf is not None else 0.0),
+        _f32(CHI2_3D if has_depth else CHI2_2D), iters, rounds, int(has_depth),
+        pose.data_ptr(), mask.data_ptr(), cuda.stream_handle(dev),
+    )
+    cuda.check_launch(err, "motion_only_lm (batched)")
+    launches += 1
+    batched_launches += 1
+    return pose, mask.view(torch.bool)
+
+
 def _library() -> ctypes.CDLL:
     lib = cuda.load_library("lm_kernel")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.motion_only_lm_launch.argtypes = [p, p, p, p, p, p, i, f, f, f, f, f, f, i, i, i, p, p, p]
     lib.motion_only_lm_launch.restype = ctypes.c_int
-    lib.motion_only_lm_max_rows.argtypes = []
-    lib.motion_only_lm_max_rows.restype = ctypes.c_int
+    lib.motion_only_lm_launch_batched.argtypes = [p, p, p, p, p, p, i, i, f, f, f, f, f, f, i, i, i, p, p, p]
+    lib.motion_only_lm_launch_batched.restype = ctypes.c_int
+    for fn in (lib.motion_only_lm_max_rows, lib.motion_only_lm_max_problems):
+        fn.argtypes = []
+        fn.restype = ctypes.c_int
     return lib

@@ -11,10 +11,13 @@ the reference does for small windows. Every per-camera reduction is a
 gather through the static camera->observation table and a sum, so the
 card gives the same result on every run.
 
-Not ported (each raises NotImplementedError naming its ROADMAP item):
+`local_bundle_adjustment` solves a covisibility window,
+`global_bundle_adjustment` the whole map (the first keyframe fixed): a map
+of up to 112 keyframes pads to fewer than 128 slots and takes the dense
+route. Not ported (each raises NotImplementedError naming its ROADMAP item):
 marker vertices and planar edges, the matrix-free CG solve and the
-point-major solver the reference routes windows of >= 128 keyframe
-slots to.
+point-major solver the reference routes problems of >= 128 keyframe slots
+to.
 """
 
 from __future__ import annotations
@@ -420,6 +423,18 @@ def apply_ba_result(
             kf_ids[rows_d] = torch.from_numpy(rows).to(dev)
             world_map.state = world_map.state.replace(kf_ids=kf_ids)
     return n_bad
+
+
+def global_bundle_adjustment(world_map: Map, cam: CameraParams, n_iters: int = 50, fix_first: bool = True) -> int:
+    """Full-map BA (the reference's UcoSlam::globalOptimization). Returns the
+    number of bad associations removed."""
+    if world_map.n_keyframes < 2:
+        return 0
+    problem, kf_slots, pt_slots = build_ba_problem(world_map, cam, fix_first=fix_first)
+    if len(pt_slots) == 0:
+        return 0
+    result = ba_solve(problem, cam, iters=n_iters, stages=2)
+    return apply_ba_result(world_map, result, kf_slots, pt_slots, problem)
 
 
 def local_bundle_adjustment(

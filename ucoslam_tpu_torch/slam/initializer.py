@@ -6,8 +6,9 @@ recover the motion, triangulate, and normalize the scale to median scene
 depth 1. The hypotheses' rows are drawn on the host from a numpy generator
 seeded 0x1717 (the reference's PRNG key), uniformly among the valid
 matches, and handed to `estimate_two_view`, so the card and the CPU draw
-the same hypotheses. Depth and marker initialization and the lost-segment
-re-seed raise NotImplementedError, each naming its ROADMAP item.
+the same hypotheses. `reseed_two_view` seeds a fresh map segment the same
+way after a long tracking loss. Depth and marker initialization raise
+NotImplementedError, each naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -62,10 +63,56 @@ class MapInitializer:
             "initialization from markers is not ported yet (ROADMAP.md, Queue 1 item 3: markers)"
         )
 
-    def reseed_two_view(self, frame, world_map, anchor_pose, baseline_hint, creation_kf):
-        raise NotImplementedError(
-            "re-seeding a lost map segment is not ported yet (ROADMAP.md, Queue 1 item 2: relocalization)"
+    def reseed_two_view(self, frame: Frame, world_map: Map, anchor_pose: np.ndarray, baseline_hint: float,
+                        creation_kf: int):
+        """Two-view init of a fresh, disconnected map segment inside the
+        existing map, after unrecoverable tracking loss: the stored reference
+        frame is anchored at `anchor_pose` (its dead-reckoned pose_f2g), and
+        the scale set so that the two-view baseline equals `baseline_hint`
+        (from the motion model). -> (status, cur_frame_with_pose, (ref slot,
+        cur slot)), the slots empty unless status is "ok"."""
+        if self.ref_frame is None:
+            return "no_ref", frame, ()
+        ref = self.ref_frame
+        got = self._two_view_geometry(frame)
+        if isinstance(got, str):
+            return got, frame, ()
+        pts, ok, pose_21, train_idx = got
+        base = float(np.linalg.norm(pose_21[:3, 3]))
+        if base < 1e-6:
+            return "no_geometry", frame, ()
+        s = float(np.clip(baseline_hint / base, 1e-3, 1e3))
+        pts = pts * s
+        pose_21[:3, 3] *= s
+        anchor = np.asarray(anchor_pose, np.float64)
+        A_inv = np.linalg.inv(anchor)  # global coordinates: X_g = anchor^-1 X_refcam
+        pts_g = pts[ok] @ A_inv[:3, :3].T + A_inv[:3, 3]
+        idx1 = np.nonzero(ok)[0]
+        idx2 = train_idx[idx1]
+        ref_octave, ref_desc = fetch_to_host(ref.octave, ref.desc)
+        dist = np.linalg.norm(pts[idx1], axis=1)
+        min_d, max_d = _min_max_dist(dist, ref_octave[idx1], self.params)
+        slots = world_map.add_points(
+            pos=pts_g.astype(np.float32),
+            normal=_view_normals(pts_g, anchor.astype(np.float32)),
+            desc=ref_desc[idx1],
+            min_dist=min_d,
+            max_dist=max_d,
+            flags=np.zeros(len(idx1), np.int32),
+            creation_kf=creation_kf,
         )
+        ids1 = np.full(ref.n, -1, np.int32)
+        ids1[idx1] = slots
+        ids2 = np.full(frame.n, -1, np.int32)
+        ids2[idx2] = slots
+        dev = ref.und_xy.device
+        pose_cur = (pose_21.astype(np.float64) @ anchor).astype(np.float32)
+        ref2 = ref.replace(ids=torch.from_numpy(ids1).to(dev),
+                           pose_f2g=torch.from_numpy(anchor.astype(np.float32)).to(dev))
+        cur = frame.replace(ids=torch.from_numpy(ids2).to(dev), pose_f2g=torch.from_numpy(pose_cur).to(dev))
+        s1 = world_map.add_keyframe(ref2)
+        s2 = world_map.add_keyframe(cur)
+        return "ok", cur, (s1, s2)
 
     def _draw_samples(self, valid: np.ndarray, device) -> torch.Tensor:
         rows = np.nonzero(valid)[0]

@@ -6,8 +6,9 @@ keyframe, capacity growth, the stale-id drop, insertion, stereo points
 six covisible neighbours (one batch over a leading axis), duplicate fusion
 (kernel B1 at a 3 px radius over the whole point arena), recent-point
 culling, local BA, the point statistics, keyframe culling, the keyframe
-database and loop detection. The asynchronous mapping worker and the
-marker branch raise NotImplementedError, each naming its ROADMAP item.
+database and keypoint loop closure (detection, Sim3 correction with seam
+fusion, then a global BA). The asynchronous mapping worker and the marker
+branch raise NotImplementedError, each naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -126,6 +127,7 @@ class MapManager:
         self.kfdb = kfdb if kfdb is not None else KeyFrameDataBase(params.maxKeyFrames, device=device)
         self.loop_detector = LoopDetector(params, cam, self.kfdb)
         self.n_insertions = 0  # new_keyframe calls (each launches B1 once, to fuse)
+        self.loop_closures = 0  # loops accepted (the tracker adopts the corrected pose)
 
     def start_async(self, world_map: Map) -> None:
         raise NotImplementedError(
@@ -164,10 +166,21 @@ class MapManager:
         self._cull_keyframes(world_map, kf_slot)
 
         self.kfdb.add(kf_slot, frame.desc, frame.valid)
-        if p.detectKeyPoints:
-            # a candidate raises: its verification and correction are not ported
-            self.loop_detector.detect_from_keypoints(world_map, kf_slot, frame)
+        self._detect_and_close_loop(world_map, kf_slot, frame)
         return kf_slot
+
+    def _detect_and_close_loop(self, world_map: Map, kf_slot: int, frame: Frame) -> None:
+        """Keypoint loop detection; an accepted correction is followed by a
+        global BA (the marker detector is item 3 of the ROADMAP)."""
+        if not self.params.detectKeyPoints:
+            return
+        info = self.loop_detector.detect_from_keypoints(world_map, kf_slot, frame)
+        if not info.found:
+            return
+        fix_scale = bool((world_map.state.kf_depth > 0).any())
+        if self.loop_detector.correct_map(world_map, info, fix_scale=fix_scale):
+            self.loop_closures += 1
+            ba.global_bundle_adjustment(world_map, self.cam, n_iters=10)
 
     def _create_stereo_points(self, world_map: Map, kf_slot: int, frame: Frame,
                               host_depth=None, host_valid=None, host_ids=None) -> None:

@@ -3,10 +3,13 @@
 Port of `ucoslam_tpu/slam/system.py`, sequential mode (`runSequential`):
 per frame, initialize from two views while the map is empty, else track
 with the motion-model prior, decide on a keyframe and hand it to the
-MapManager inline; LOCALIZATION mode tracks without mapping. Not ported,
-each raising NotImplementedError that names its ROADMAP item: markers,
-initialization from depth, relocalization (a lost frame with
-reLocalizationWithKeyPoints), the lost-segment re-seed, and the async
+MapManager inline; LOCALIZATION mode tracks without mapping. A lost frame
+relocalizes (BoW candidates through the keyframe database, or brute force
+for a dummy one); after `reseedAfterLostFrames` lost SLAM frames a fresh map
+segment is re-seeded from two views at the dead-reckoned pose; after a loop
+correction the tracker adopts the corrected keyframe pose. Not ported, each
+raising NotImplementedError that names its ROADMAP item: markers (and the
+marker relocalization fallback), initialization from depth, and the async
 mapper.
 """
 
@@ -62,6 +65,8 @@ class System:
         self.last_kf_inliers = 0
         self._last_kf_rot = None  # rotation (3x3) of the last inserted keyframe
         self._lost_streak = 0  # consecutive lost frames (re-seed trigger)
+        self._reseed_anchor = None  # dead-reckoned pose at the re-seed reference frame
+        self._reseed_ref_fseq = 0
         self._dead_pose = None  # motion-model extrapolation while lost
         self._init_failures = 0
         self.stats_log = []
@@ -95,7 +100,7 @@ class System:
         if self.state == TrackingState.TRACKING:
             res = self.tracker.track(self.map, frame, self._prior())
         elif self.params.reLocalizationWithKeyPoints:
-            res = self.tracker.relocalize(self.map, frame)
+            res = self.tracker.relocalize(self.map, frame, kfdb=self.manager.kfdb)
         else:
             res = TrackResult(False, None, frame, 0, 0, np.zeros(0, np.int32))
 
@@ -105,12 +110,16 @@ class System:
             if self.pose is not None:
                 base = self._dead_pose if self._dead_pose is not None else self.pose
                 self._dead_pose = (self.velocity @ base).astype(np.float32)
-            self._check_reseed()
+            pose = self._try_reseed(frame)
+            if pose is not None:
+                self._log(frame, pose, self.last_kf_inliers)
+                return pose
             self._log(frame, None, 0)
             return None
 
         self.state = TrackingState.TRACKING
         self._lost_streak = 0
+        self._reseed_anchor = None
         self._dead_pose = None
         pose = np.asarray(res.pose_f2g)
         self._update_motion_model(pose)
@@ -122,32 +131,72 @@ class System:
         # running max of tracked inliers since the last keyframe, after the decision
         self.last_kf_inliers = max(self.last_kf_inliers, res.n_inliers)
         if need_kf:
-            # a loop correction or a metric rescale would move this pose too;
-            # neither is ported (the loop detector raises on a candidate, and
-            # only marker or depth maps are rescaled)
-            self.manager.new_keyframe(
+            # (a metric rescale would move this pose too: only marker and
+            # depth maps are rescaled, neither ported)
+            loops_before = self.manager.loop_closures
+            kf_slot = self.manager.new_keyframe(
                 self.map, res.frame, host_ids=res.host_ids, host_depth=res.host_depth, host_valid=res.host_valid
             )
+            if self.manager.loop_closures != loops_before:
+                # a loop moved the world: adopt the corrected keyframe pose
+                # and reset the motion model
+                pose = self.map.h("kf_pose")[kf_slot].copy()
+                self.pose = pose
+                self.prev_pose = None
+                self.velocity = np.eye(4, dtype=np.float32)
             self.frames_since_kf = 0
             self.last_kf_inliers = max(res.n_inliers, 1)
             self._last_kf_rot = pose[:3, :3].copy()
         self._log(frame, pose, res.n_inliers)
         return pose
 
-    def _check_reseed(self) -> None:
-        """The reference re-seeds a fresh map segment by two-view
-        initialization after `reseedAfterLostFrames` lost SLAM frames."""
+    def _try_reseed(self, frame: Frame) -> np.ndarray | None:
+        """Fresh-segment re-seed after unrecoverable tracking loss: once
+        relocalization has failed `reseedAfterLostFrames` SLAM frames in a
+        row, park a reference frame at the dead-reckoned pose, then two-view
+        initialize a new, disconnected map segment there. The keyframe
+        database spans both segments, so a later loop can stitch them.
+        -> the frame's pose, or None."""
         p = self.params
         if (
-            p.reseedAfterLostFrames > 0
-            and self.mode == Mode.SLAM
-            and self._lost_streak >= p.reseedAfterLostFrames
-            and self._dead_pose is not None
+            p.reseedAfterLostFrames <= 0
+            or self.mode != Mode.SLAM
+            or self._lost_streak < p.reseedAfterLostFrames
+            or self._dead_pose is None
         ):
-            raise NotImplementedError(
-                f"re-seeding after {self._lost_streak} lost frames is not ported yet "
-                "(ROADMAP.md, Queue 1 item 2: relocalization, reseed_two_view)"
-            )
+            return None
+        if self._reseed_anchor is None:
+            self.initializer.set_reference_frame(frame)
+            self._reseed_anchor = self._dead_pose.copy()
+            self._reseed_ref_fseq = int(frame.fseq)
+            return None
+        gap = max(1, int(frame.fseq) - self._reseed_ref_fseq)
+        baseline = max(1e-3, float(np.linalg.norm(self.velocity[:3, 3])) * gap)
+        status, cur, slots = self.initializer.reseed_two_view(
+            frame, self.map, self._reseed_anchor, baseline, creation_kf=self.manager.kf_counter
+        )
+        if status == "few_matches":
+            # the scene moved past the parked reference: re-park here
+            self.initializer.set_reference_frame(frame)
+            self._reseed_anchor = self._dead_pose.copy()
+            self._reseed_ref_fseq = int(frame.fseq)
+            return None
+        if status != "ok":
+            return None  # low parallax so far: wait for baseline
+        self._add_to_kfdb(slots)
+        self.manager.kf_counter += 2
+        self.state = TrackingState.TRACKING
+        pose = cur.pose_f2g.cpu().numpy().astype(np.float32)
+        self.pose = pose
+        self.prev_pose = None
+        self.velocity = np.eye(4, dtype=np.float32)
+        self.frames_since_kf = 0
+        self.last_kf_inliers = max(int((cur.ids >= 0).sum()), 30)
+        self._last_kf_rot = pose[:3, :3].copy()
+        self._lost_streak = 0
+        self._reseed_anchor = None
+        self._dead_pose = None
+        return pose
 
     def _try_initialize(self, frame: Frame) -> np.ndarray | None:
         if self.params.forceInitializationFromMarkers:
@@ -236,6 +285,7 @@ class System:
         self.pose = None
         self.velocity = np.eye(4, dtype=np.float32)
         self._lost_streak = 0
+        self._reseed_anchor = None
         self._dead_pose = None
 
     def global_signature(self) -> int:

@@ -1,10 +1,17 @@
 """Per-frame tracking: projection matching + robust pose refinement.
 
-Port of `ucoslam_tpu/slam/tracker.py` (`_track_step` and `Tracker.track`).
-Each track attempt runs the two-stage track: a wide match from the prior,
-motion-only LM, a re-match from the refined pose at half the radius, and a
-final refine, so kernels B1 and B2 each launch twice per attempt on the card.
-Relocalization is not ported yet.
+Port of `ucoslam_tpu/slam/tracker.py`. Each track attempt runs the
+two-stage track: a wide match from the prior, motion-only LM, a re-match from
+the refined pose at half the radius, and a final refine, so kernels B1 and B2
+each launch twice per attempt on the card.
+
+Relocalization has the reference's two paths. With a keyframe database, the
+BoW candidates are verified in one batch (`matching.kfmatch`: one batched
+launch of B2 for their PnP refines) and the best-supported verified pose
+seeds `track`. With a dummy database, the frame is matched against the whole
+point arena (`_reloc_match`) and one PnP RANSAC (B2 at B = the arena's size)
+seeds `track`. The RANSAC rows come from the tracker's numpy Generator,
+seeded with the reference's PRNG constant, in a fixed order.
 """
 
 from __future__ import annotations
@@ -18,8 +25,10 @@ from ucoslam_tpu_torch.config import Params
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import Frame, fetch_to_host
 from ucoslam_tpu_torch.mapping.map import Map, MapState
+from ucoslam_tpu_torch.matching.kfmatch import match_keyframe_points_pnp_batch
 from ucoslam_tpu_torch.matching.projection import match_points_to_frame
-from ucoslam_tpu_torch.optim.pnp import motion_only_lm
+from ucoslam_tpu_torch.ops.hamming import INVALID_DIST, filter_ambiguous_train_sized, hamming_matrix, match_best2
+from ucoslam_tpu_torch.optim.pnp import draw_rows, motion_only_lm, pnp_ransac
 
 #: marker-corner rows appended to the motion-only LM (4 per frame marker);
 #: zero and invalid until markers are ported, kept so B2 sees the same B
@@ -111,12 +120,25 @@ def _track_step(
     return res.pose_f2g, ids, inlier, m.n_matched, inlier_kpt.sum(), m.point_valid, inlier
 
 
+def _reloc_match(state: MapState, frame: Frame, max_desc_dist: float):
+    """Brute-force 3D-2D matches for relocalization: every active map point
+    against every keypoint (P x N Hamming distances), best-2 ratio 0.75, one
+    point per keypoint. -> (kpt_idx (P,), valid (P,))."""
+    d = hamming_matrix(state.pt_desc, frame.desc)
+    idx, best, second = match_best2(d, valid_rows=state.pt_active, valid_cols=frame.valid)
+    accept = (best <= max_desc_dist) & (best.to(torch.float32) < 0.75 * second.to(torch.float32))
+    keep = filter_ambiguous_train_sized(idx, torch.where(accept, best, INVALID_DIST), frame.n)
+    return torch.where(accept & keep, idx, -1), accept & keep
+
+
 class Tracker:
     def __init__(self, params: Params, cam: CameraParams, device):
         self.params = params
         self.cam = cam
         self.device = torch.device(device)
         self.n_attempts = 0  # _track_step calls (each launches B1 and B2 twice)
+        self.n_relocalizations = 0  # relocalize calls
+        self._rng = np.random.default_rng(0xC0FFEE)  # RANSAC rows, in call order
         self._zero_mk = (
             torch.zeros(MK_ROWS, 3, device=self.device),
             torch.zeros(MK_ROWS, 2, device=self.device),
@@ -166,8 +188,41 @@ class Tracker:
             host_valid=valid_np,
         )
 
-    def relocalize(self, world_map: Map, frame: Frame) -> TrackResult:
-        raise NotImplementedError(
-            "relocalization is not ported yet (ROADMAP.md, Queue 1 item 2: relocalization "
-            "- kfmatch, pnp_ransac)"
-        )
+    def _draw(self, valid: np.ndarray, n_hypotheses: int) -> np.ndarray:
+        return draw_rows(self._rng, valid, n_hypotheses)
+
+    def _lost(self, frame: Frame) -> TrackResult:
+        return TrackResult(False, None, frame, 0, 0, np.zeros(0, np.int32))
+
+    def relocalize(self, world_map: Map, frame: Frame, kfdb=None) -> TrackResult:
+        """Relocalize a lost tracker: through the keyframe database's BoW
+        candidates when there is a real one, else by brute force against
+        the whole point arena (module docstring)."""
+        self.n_relocalizations += 1
+        p = self.params
+        if kfdb is not None and not kfdb.dummy:
+            cands = kfdb.relocalization_candidates(
+                frame.desc, frame.valid, world_map.keyframes.active, covis=world_map.covis_matrix()
+            )
+            cms = match_keyframe_points_pnp_batch(
+                world_map, frame, cands, self.cam, p, self._draw, min_matches=20, min_inliers=15
+            )
+            # the best-supported verified pose first
+            for cm in sorted(cms, key=lambda c: -c.n_inliers):
+                if cm.ok:
+                    res = self.track(world_map, frame, torch.from_numpy(cm.pose_f2g).to(self.device))
+                    if res.ok:
+                        return res
+            return self._lost(frame)
+        st = world_map.state
+        kpt_idx, valid = _reloc_match(st, frame, float(np.float32(p.maxDescDistance)))
+        safe = torch.where(valid, kpt_idx, 0)
+        uv = frame.und_xy[safe]
+        log_sf = torch.log(torch.tensor(p.scaleFactor, dtype=torch.float32, device=self.device))
+        sigma2 = torch.exp(2.0 * frame.octave[safe].to(torch.float32) * log_sf)
+        sample_idx = torch.from_numpy(self._draw(valid.cpu().numpy(), p.ransacIters)).to(self.device)
+        res = pnp_ransac(st.pt_pos, uv, sigma2, valid, self.cam, sample_idx)
+        if int(res.n_inliers) < 20:
+            return self._lost(frame)
+        # refine with projection tracking from the RANSAC pose
+        return self.track(world_map, frame, res.pose_f2g)

@@ -60,7 +60,32 @@ Phases (each prints one line or more; any failure raises and exits non-zero):
    batched B2 launch and one B1 launch per seam fusion; then
    `globalOptimization` on phase 5's map on the card and on the CPU (chi2
    falls, within 1% of the CPU's, poses within 1e-3). Phases 6 and 7 run
-   in the 60-frame run only.
+   in the 60-frame run only;
+8. markers, on the `markers` parity scene (ten 0.6 m ARUCO_MIP_36h12
+   markers among the quads, rendered; the native detector built with g++),
+   each held to the JAX package's run of the same protocol
+   (`data/torch_port/markers_{map.slm,jax.json}`): (a) SLAM from nothing
+   with the parameters the JAX package mapped with (tracked >= JAX - 2,
+   metric ATE without scale alignment <= 1.2 x JAX + 0.002, markers with a
+   map pose >= JAX - 1; the init kind, the Horn scale, the markers'
+   position error, the detector's, IPPE's and local BA's times printed), a
+   second pass with the same signature, save, reload with the same
+   signature, the reverse sweep (tracked >= JAX's - 2, metric ATE <= 1.2 x
+   JAX + 0.002); (b) the JAX package's marker map localized in reverse
+   (tracked >= JAX's, metric ATE <= 1.2 x JAX + 0.002, centres within 2% of
+   the depth extent of JAX's); (c) the same with `resetTracker()` at frame
+   20 and the keypoints of frames 20-24 removed (the frames the markers
+   pose >= JAX's, centres within (b)'s tolerance); (d) the drifted ring map
+   of phase 7 with a marker of known pose (`ring_marker`) seen by keyframe 0
+   and the returning keyframe: `detect_from_markers` finds the loop against
+   keyframe 0, `correct_map` lowers the drift, card and CPU poses within
+   1e-3; (e) kernel B2 against its plain version on the tracker's inputs of
+   a phase-8 frame with >= 4 live markers in its corner rows (pose < 1e-4,
+   the same mask), timed. B1 = 2 x track attempts + duplicate fusions and
+   B2 = 2 x track attempts + batched verifications + marker pose refines in
+   every run. With `--frames 150` only (a)'s first pass runs, against the
+   150-frame reference, and it runs even when phase 5 failed (the run then
+   fails after it).
 
 The kernels' times are medians of CUDA-event timings of single launches
 (B2's batched record: of one batched launch, beside C single launches).
@@ -77,6 +102,7 @@ run outside the repository checkout.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -263,6 +289,38 @@ def b2_inputs(device, B=2112, seed=0, with_depth=False):
     )
 
 
+def b2_marker_inputs(device, n_markers: int, seed=0):
+    """b2_inputs with the corner rows of n_markers live markers (4 rows
+    each, at most 16) in its 64 marker rows: 0.5 m markers 3-9 m ahead,
+    their corners seen through the true pose with 0.3 px noise, weighted as
+    the tracker weighs them (sigma2_mk: the markers carry 0.3 of the edge
+    mass against the valid keypoint rows)."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.geometry.se3 import se3_exp
+    from ucoslam_tpu_torch.markers.ippe import marker_object_points
+
+    kw = b2_inputs("cpu", seed=seed)
+    rng = np.random.default_rng(seed + 1000)
+    B = kw["pts3d"].shape[0]
+    T_true = se3_exp(torch.tensor([0.1, -0.05, 0.02, 0.03, -0.02, 0.01])).numpy()
+    X, uv, valid, sigma2 = (kw[k].numpy().copy() for k in ("pts3d", "uv", "valid", "sigma2"))
+    obj = marker_object_points(0.5).numpy()
+    for m in range(n_markers):
+        xi = np.r_[rng.uniform(-2, 2), rng.uniform(-1.5, 1.5), rng.uniform(3, 9), rng.uniform(-0.5, 0.5, 3)]
+        g2m = se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy() @ np.diag([1.0, -1.0, -1.0, 1.0])
+        rows = slice(B - 64 + 4 * m, B - 60 + 4 * m)
+        X[rows] = obj @ g2m[:3, :3].T + g2m[:3, 3]
+        q = X[rows] @ T_true[:3, :3].T + T_true[:3, 3]
+        uv[rows] = np.c_[500 * q[:, 0] / q[:, 2] + 320, 500 * q[:, 1] / q[:, 2] + 240] + rng.normal(0, 0.3, (4, 2))
+        valid[rows] = True
+    n_kp = int(valid[: B - 64].sum())
+    kp_w = float((1.0 / sigma2[: B - 64])[valid[: B - 64]].sum())
+    sigma2[B - 64:] = 1.0 / max((0.3 * (n_kp + n_markers) / 0.7) / max(kp_w, 1e-6), 1e-9)
+    kw.update(pts3d=X, uv=uv.astype(np.float32), valid=valid, sigma2=sigma2.astype(np.float32))
+    return {k: v if v is None else torch.as_tensor(np.ascontiguousarray(v)).to(device) for k, v in kw.items()}
+
+
 def ring_loop_scene(n_kf=10, n_pt_per=60):
     """The drifted ring map of the loop-closure tests, as numpy arrays: a
     ring of n_kf outward-looking keyframes, each observing its own n_pt_per
@@ -376,6 +434,53 @@ def ring_loop_map(scene, params, device):
     kf_slot = m.add_keyframe(f)
     kfdb.add(kf_slot, f.desc, f.valid)
     return m, LoopDetector(params, cam, kfdb), kf_slot, f
+
+
+#: a marker of known pose in keyframe 0's view of ring_loop_scene (id, side
+#: length, and its pose as an se3 tangent before the flip that turns it to
+#: face the camera)
+RING_MARKER = dict(id=7, size=1.0, xi=(0.3, -0.2, 4.5, 0.4, 0.3, 0.0))
+
+
+def ring_marker(scene) -> dict:
+    """RING_MARKER in ring_loop_scene: its world pose, and its corners as
+    keyframe 0 and the returning camera (both truly at keyframe 0's pose)
+    see them, each with its own 0.2 px noise; numpy."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.geometry.se3 import se3_exp
+    from ucoslam_tpu_torch.markers.ippe import marker_object_points
+
+    g2m = se3_exp(torch.tensor(RING_MARKER["xi"])).numpy() @ np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    T = scene["true_poses"][0] @ g2m
+    q = marker_object_points(RING_MARKER["size"]).numpy() @ T[:3, :3].T + T[:3, 3]
+    uv = np.stack([500.0 * q[:, 0] / q[:, 2] + 320.0, 500.0 * q[:, 1] / q[:, 2] + 240.0], -1)
+    rng = np.random.default_rng(11)
+    return dict(g2m=g2m.astype(np.float32), corners_kf0=(uv + rng.normal(0, 0.2, uv.shape)).astype(np.float32),
+                corners_loop=(uv + rng.normal(0, 0.2, uv.shape)).astype(np.float32), **RING_MARKER)
+
+
+def add_ring_marker(m, marker: dict, kf_slot: int, f, cam):
+    """Register ring_marker's marker in the port's map of ring_loop_map
+    (with its true pose), record its observations in keyframe 0 and the
+    returning keyframe `kf_slot`. -> the returning frame `f` carrying it."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.markers.detector import _markers_from
+    from ucoslam_tpu_torch.slam.markermap import record_marker_observations
+
+    slot = m.markers.alloc()
+    m.set_markers([slot], mk_id=[marker["id"]], mk_active=[True], mk_size=[marker["size"]],
+                  mk_pose=marker["g2m"][None], mk_pose_valid=[True])
+    slots = np.full(16, -1, np.int32)
+    slots[0] = slot
+    for kf, key in ((0, "corners_kf0"), (kf_slot, "corners_loop")):
+        corners = np.zeros((16, 4, 2), np.float32)
+        corners[0] = marker[key]
+        fm = _markers_from(np.asarray([marker["id"]], np.int32), corners, torch.from_numpy(corners).to(m.device),
+                           marker["size"], cam)
+        record_marker_observations(m, kf, fm, slots)
+    return f.replace(markers=fm)
 
 
 def b2_batch_inputs(device, C: int, B: int, seed: int = 100):
@@ -532,22 +637,56 @@ def phase_b2_batched() -> dict:
     return rec
 
 
-def timed(obj, method: str) -> list:
-    """Wrap obj.method so that each call is timed on the host clock up to a
-    device synchronize; returns the list the times (ms) are appended to."""
+@contextlib.contextmanager
+def patched(obj, name: str, around):
+    """While entered, a call of obj.<name>(*a, **kw) (a module's function, a
+    class's method or one object's method) runs around(inner, *a, **kw),
+    inner being what obj.<name> was; restored on exit."""
+    own, inner = name in vars(obj), getattr(obj, name)
+    saved = vars(obj).get(name)
+    setattr(obj, name, lambda *a, **kw: around(inner, *a, **kw))
+    try:
+        yield
+    finally:
+        if own:
+            setattr(obj, name, saved)
+        else:
+            delattr(obj, name)
+
+
+def timing(times: list):
+    """An `around` for `patched`: each call timed on the host clock up to a
+    device synchronize, in ms, appended to `times`."""
     import torch
 
-    inner, times = getattr(obj, method), []
-
-    def wrapper(*args, **kwargs):
+    def around(inner, *args, **kwargs):
         t0 = time.perf_counter()
         out = inner(*args, **kwargs)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
         return out
 
-    setattr(obj, method, wrapper)
-    return times
+    return around
+
+
+def count_calls(stack: contextlib.ExitStack) -> dict:
+    """Counts, while `stack` is open, the duplicate fusions
+    (`mapmanager.fuse_duplicates_into_kf`: one B1 launch each, at keyframe
+    insertion and at a loop's seam) and the marker pose refines
+    (`markermap.motion_only_lm`: one B2 launch each)."""
+    from ucoslam_tpu_torch.slam import mapmanager, markermap
+
+    n = {"fusions": 0, "marker_lm": 0}
+
+    def counting(key):
+        def around(inner, *args, **kwargs):
+            n[key] += 1
+            return inner(*args, **kwargs)
+        return around
+
+    stack.enter_context(patched(mapmanager, "fuse_duplicates_into_kf", counting("fusions")))
+    stack.enter_context(patched(markermap, "motion_only_lm", counting("marker_lm")))
+    return n
 
 
 def camera_center(pose):
@@ -578,6 +717,63 @@ def ate_of(poses: dict, seq) -> float:
     return ate_rmse(np.stack([camera_center(poses[i]) for i in idx]), seq.gt_positions()[idx], with_scale=True)
 
 
+def metric_summary(poses: dict, seq) -> dict:
+    """Metric ATE (rigid alignment, no scale), the Horn scale against the
+    truth and the scale-aligned ATE of a run's poses (a marker map is
+    metric, so its ATE is taken without scale alignment)."""
+    import numpy as np
+    from ucoslam_tpu_torch.geometry.horn import ate_rmse, horn_align
+
+    idx = sorted(poses)
+    if len(idx) < 3:
+        return dict(metric_ate=float("inf"), horn_scale=None, ate=float("inf"))
+    est = np.stack([camera_center(poses[i]) for i in idx])
+    gt = seq.gt_positions()[idx]
+    return dict(metric_ate=ate_rmse(est, gt, with_scale=False), horn_scale=float(horn_align(est, gt)[0]),
+                ate=ate_rmse(est, gt, with_scale=True))
+
+
+def map_to_world(poses: dict, seq):
+    """(4, 4) rigid transform from a map's frame to the world, from the
+    tracked frames' full poses: the mean of gt_pose^-1 @ pose, its rotation
+    projected back onto SO(3)."""
+    import numpy as np
+
+    A = np.stack([np.linalg.inv(seq.gt_pose(i).astype(np.float64)) @ np.asarray(poses[i], np.float64)
+                  for i in sorted(poses)])
+    U, _, Vt = np.linalg.svd(A[:, :3, :3].sum(0))
+    T = np.eye(4)
+    T[:3, :3] = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+    T[:3, 3] = A[:, :3, 3].mean(0)
+    return T
+
+
+def marker_errors(mk_id, mk_pose, mk_valid, poses: dict, seq, truth: dict) -> dict:
+    """Markers with a map pose, and the distance of their centres from the
+    scene's (`truth`: id -> marker-to-world pose), the map carried into the
+    world by map_to_world."""
+    import numpy as np
+
+    sel = [int(s) for s in np.nonzero(mk_valid)[0]]
+    if not sel or not poses:
+        return dict(markers_posed=len(sel), marker_err_mean=None, marker_err_max=None)
+    T = map_to_world(poses, seq)
+    err = [float(np.linalg.norm(T[:3, :3] @ mk_pose[s][:3, 3] + T[:3, 3] - truth[int(mk_id[s])][:3, 3]))
+           for s in sel]
+    return dict(markers_posed=len(sel), marker_err_mean=float(np.mean(err)), marker_err_max=float(np.max(err)))
+
+
+def init_kind(slam, before_keyframes: int) -> str | None:
+    """How a frame initialized the map of a UcoSlam (None if it did not):
+    `marker` (no points: the marker path), `hybrid` (two-view points made
+    metric by a marker), or `keypoint` (two-view, arbitrary scale)."""
+    if before_keyframes > 0 or slam.map.n_keyframes == 0:
+        return None
+    if not slam._system.manager.metric_locked:
+        return "keypoint"
+    return "marker" if slam.map.n_points == 0 else "hybrid"
+
+
 def phase_slice(scene):
     import numpy as np
     import torch
@@ -594,29 +790,29 @@ def phase_slice(scene):
     slam.setMode(Mode.LOCALIZATION)
     # B1's live-row mask on the first attempt, counted after the sweep (no
     # launch of its own inside the timed frames)
-    first_valid, inner_match = [], projection.project_match
+    first_valid, t_extract, t_track = [], [], []
 
-    def first_match(*args):
-        first_valid.append(args[3])
-        projection.project_match = inner_match
-        return inner_match(*args)
+    def first_match(inner, *args):
+        if not first_valid:
+            first_valid.append(args[3])
+        return inner(*args)
 
-    projection.project_match = first_match
-    # process() is extract, then track: time each where process() calls it
-    t_extract = timed(slam._extractor, "process")
-    t_track = timed(slam._system, "process_frame")
-    reset_counts()
     poses, t_process = {}, []
-    for i in frames:
-        t0 = time.perf_counter()
-        pose = slam.process(images[i], fseq=i)
-        torch.cuda.synchronize()
-        t_process.append(1e3 * (time.perf_counter() - t0))
-        if pose is not None:
-            poses[i] = pose
-    launches = counts()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(projection, "project_match", first_match))
+        # process() is extract, then track: time each where process() calls it
+        stack.enter_context(patched(slam._extractor, "process", timing(t_extract)))
+        stack.enter_context(patched(slam._system, "process_frame", timing(t_track)))
+        reset_counts()
+        for i in frames:
+            t0 = time.perf_counter()
+            pose = slam.process(images[i], fseq=i)
+            torch.cuda.synchronize()
+            t_process.append(1e3 * (time.perf_counter() - t0))
+            if pose is not None:
+                poses[i] = pose
+        launches = counts()
     attempts = slam._system.tracker.n_attempts
-    projection.project_match = inner_match
     first_live = int(first_valid[0].sum())
 
     ref_poses = {int(k): np.asarray(v) for k, v in ref["reverse_poses"].items()}
@@ -653,7 +849,8 @@ def slam_pass(params, cam, images) -> dict:
     """One forward SLAM pass of `UcoSlam(device="cuda")` over the images:
     each `process` timed and classed by what the frame did (init, track, or
     a keyframe insertion), `new_keyframe` and its steps timed, the kernels'
-    launches counted, and the B1 inputs of the last duplicate fusion kept."""
+    launches counted with the calls that launch them, the init's kind, and
+    the B1 inputs of the last duplicate fusion kept."""
     import torch
     from ucoslam_tpu_torch.api import UcoSlam
     from ucoslam_tpu_torch.matching import projection
@@ -663,48 +860,59 @@ def slam_pass(params, cam, images) -> dict:
     slam = UcoSlam(device="cuda")
     slam.setParams(None, params, cam)
     mgr = slam._system.manager
-    steps = {"new_keyframe": timed(mgr, "new_keyframe")}
-    steps.update({k: timed(mgr, m) for k, m in KEYFRAME_STEPS.items()})
-    inner_ba, inner_match = ba.local_bundle_adjustment, projection.project_match
-    steps["local_ba"] = timed(ba, "local_bundle_adjustment")
-    timed_fuse, in_fuse, fuse_args = mgr._fuse_duplicates, [], []
+    steps = {k: [] for k in ("new_keyframe", *KEYFRAME_STEPS, "local_ba")}
+    in_fuse, fuse_args = [], []
 
-    def fuse(*args):
+    def fuse(inner, *args):
         in_fuse.append(True)
-        out = timed_fuse(*args)
-        in_fuse.clear()
-        return out
+        try:
+            return inner(*args)
+        finally:
+            in_fuse.clear()
 
-    def match(*args):
+    def match(inner, *args):
         if in_fuse:
             fuse_args[:] = [a.clone() for a in args]
-        return inner_match(*args)
+        return inner(*args)
 
-    mgr._fuse_duplicates, projection.project_match = fuse, match
-    poses, t_frame = {}, {"init": [], "track": [], "keyframe": []}
-    reset_counts()
-    for i, img in enumerate(images):
-        mapped, inserted = slam.map.n_keyframes > 0, mgr.n_insertions
-        t0 = time.perf_counter()
-        pose = slam.process(img, fseq=i)
-        torch.cuda.synchronize()
-        kind = "keyframe" if mgr.n_insertions > inserted else "track" if mapped else "init"
-        t_frame[kind].append(1e3 * (time.perf_counter() - t0))
-        if pose is not None:
-            poses[i] = pose
-    launches = counts()
-    ba.local_bundle_adjustment, projection.project_match = inner_ba, inner_match
+    poses, t_frame, init = {}, {"init": [], "track": [], "keyframe": []}, None
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(mgr, "new_keyframe", timing(steps["new_keyframe"])))
+        for k, m in KEYFRAME_STEPS.items():
+            stack.enter_context(patched(mgr, m, timing(steps[k])))
+        stack.enter_context(patched(ba, "local_bundle_adjustment", timing(steps["local_ba"])))
+        stack.enter_context(patched(mgr, "_fuse_duplicates", fuse))  # around its timing
+        stack.enter_context(patched(projection, "project_match", match))
+        calls = count_calls(stack)
+        reset_counts()
+        for i, img in enumerate(images):
+            before, inserted = slam.map.n_keyframes, mgr.n_insertions
+            t0 = time.perf_counter()
+            pose = slam.process(img, fseq=i)
+            torch.cuda.synchronize()
+            kind = "keyframe" if mgr.n_insertions > inserted else "track" if before > 0 else "init"
+            t_frame[kind].append(1e3 * (time.perf_counter() - t0))
+            if (k := init_kind(slam, before)) is not None:
+                init = dict(kind=k, frame=i)
+            if pose is not None:
+                poses[i] = pose
+        launches = counts()
     return dict(slam=slam, poses=poses, t_frame=t_frame, steps=steps, launches=launches,
                 attempts=slam._system.tracker.n_attempts, insertions=mgr.n_insertions,
-                fuse_args=tuple(fuse_args))
+                fuse_args=tuple(fuse_args), init=init, **calls)
 
 
 def check_slam_launches(run: dict, what: str) -> None:
+    """B1 = 2 x track attempts + duplicate fusions (one per keyframe
+    insertion, and one per keyframe of a loop's seam); B2 = 2 x track
+    attempts (a marker fallback's retried track among them) + batched
+    verifications + marker pose refines."""
     n1, n2, a, k = run["launches"]["B1"], run["launches"]["B2"], run["attempts"], run["insertions"]
-    nb = run["launches"]["B2_batched"]  # loop verifications (none met on this scene so far)
-    check(a > 0 and k > 0, f"{what}: {a} track attempts and {k} keyframe insertions")
-    check(n1 == 2 * a + k, f"{what}: B1 launched {n1} times for {a} track attempts and {k} insertions")
-    check(n2 == 2 * a + nb, f"{what}: B2 launched {n2} times for {a} track attempts and {nb} loop verifications")
+    nb, fu, mk = run["launches"]["B2_batched"], run["fusions"], run["marker_lm"]
+    check(a > 0 and k > 0 and fu >= k, f"{what}: {a} track attempts, {k} keyframe insertions, {fu} fusions")
+    check(n1 == 2 * a + fu, f"{what}: B1 launched {n1} times for {a} track attempts and {fu} fusions")
+    check(n2 == 2 * a + nb + mk, f"{what}: B2 launched {n2} times for {a} track attempts, {nb} batched "
+          f"verifications and {mk} marker refines")
 
 
 def phase_slam(scene, map_path: str, workdir: str) -> dict:
@@ -989,11 +1197,9 @@ def loop_on(device: str) -> dict:
     scene = ring_loop_scene()
     params = Params().replace(maxDescDistance=60.0, detectMarkers=False, KFMinConfidence=0.4)
     m, det, slot, f = ring_loop_map(scene, params, device)
-    fused, inner = [], mapmanager.fuse_duplicates_into_kf
-    mapmanager.fuse_duplicates_into_kf = lambda *a: fused.append(a[1]) or inner(*a)
-    reset_counts()
-    ms = {}
-    try:
+    fused, ms = [], {}
+    with patched(mapmanager, "fuse_duplicates_into_kf", lambda inner, *a: fused.append(a[1]) or inner(*a)):
+        reset_counts()
         t0 = time.perf_counter()
         info = det.detect_from_keypoints(m, slot, f)
         ms["detect"] = sync_ms(t0)
@@ -1001,8 +1207,6 @@ def loop_on(device: str) -> dict:
         t0 = time.perf_counter()
         ok = info.found and det.correct_map(m, info)
         ms["correct"] = sync_ms(t0)
-    finally:
-        mapmanager.fuse_duplicates_into_kf = inner
     c = counts()
     poses_corr = m.h("kf_pose")[m.keyframes.active_slots()].copy()
     chi_merged = m.global_reproj_chi2(det.cam)
@@ -1066,12 +1270,300 @@ def phase_loop(slam_map_slm: str, cam) -> dict:
     return dict(launches={k: c[k] for k in ("B1", "B2", "B2_batched")})
 
 
+def count_launches(fn) -> int:
+    """Kernel launches the host makes in one call of fn (torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if e.key.startswith("cudaLaunchKernel"))
+
+
+def marker_paths(frames: int) -> tuple[str, str]:
+    """-> (checkpoint, summary) of the JAX package's run of the `markers`
+    scenario over `frames` frames (make_reference_map.py --markers)."""
+    name = "markers" if frames == 60 else f"markers{frames}"
+    d = os.path.join(HERE, "data", "torch_port")
+    return os.path.join(d, f"{name}_map.slm"), os.path.join(d, f"{name}_jax.json")
+
+
+#: the marker relocalization sweep of phase 8 (c): resetTracker() before this
+#: frame, and these frames' keypoints removed after extraction (the JAX
+#: reference's, tools/port/make_reference_map.py)
+MARKER_RESET_FRAME, MARKER_STRIP_FRAMES = 20, tuple(range(20, 25))
+
+
+def b2_capture(stack: contextlib.ExitStack, min_markers: int = 4) -> dict:
+    """Keeps in the returned dict, while `stack` is open, the tracker's B2
+    inputs of the first call with at least `min_markers` live markers among
+    its corner rows."""
+    from ucoslam_tpu_torch.slam import tracker
+
+    kept = {}
+
+    def around(inner, pose0, X, uv, sig, valid, cam, depth=None, bf=None, iters=10, rounds=4):
+        if not kept and int(valid[-64:].sum()) >= 4 * min_markers:
+            kept.update(tensors=[t.clone() for t in (pose0, X, uv, sig, valid)], cam=cam, iters=iters, rounds=rounds)
+        return inner(pose0, X, uv, sig, valid, cam, depth=depth, bf=bf, iters=iters, rounds=rounds)
+
+    stack.enter_context(patched(tracker, "motion_only_lm", around))
+    return kept
+
+
+def localize_sweep(map_path: str, cam, images, reloc: bool = False, capture: bool = False) -> dict:
+    """A reverse LOCALIZATION sweep of a checkpoint by UcoSlam(device="cuda");
+    with `reloc`, resetTracker() before MARKER_RESET_FRAME and the keypoints
+    of MARKER_STRIP_FRAMES removed after extraction (fed through
+    process_frame), so only the marker fallback can pose those frames; with
+    `capture`, B2's inputs of the first track with 4 live markers are kept."""
+    import torch
+    from ucoslam_tpu_torch import Mode
+    from ucoslam_tpu_torch.api import UcoSlam
+
+    slam = UcoSlam(device="cuda")
+    slam.readFromFile(map_path, cam)
+    signature = slam.getSignatureStr()
+    slam.setMode(Mode.LOCALIZATION)
+    poses, t_frame = {}, []
+    with contextlib.ExitStack() as stack:
+        calls = count_calls(stack)
+        kept = b2_capture(stack) if capture else {}
+        reset_counts()
+        for i in reversed(range(len(images))):
+            t0 = time.perf_counter()
+            if reloc and i == MARKER_RESET_FRAME:
+                slam.resetTracker()
+            f = slam._extractor.process(images[i], i)
+            if reloc and i in MARKER_STRIP_FRAMES:
+                f = f.replace(valid=torch.zeros_like(f.valid))
+            pose = slam.process_frame(f)
+            torch.cuda.synchronize()
+            t_frame.append(1e3 * (time.perf_counter() - t0))
+            if pose is not None:
+                poses[i] = pose
+        launches = counts()
+    return dict(slam=slam, signature=signature, poses=poses, t_frame=t_frame, launches=launches, calls=calls,
+                b2_args=kept or None, attempts=slam._system.tracker.n_attempts, marker_poses=slam._system.n_marker_poses)
+
+
+def check_sweep_launches(run: dict, what: str) -> None:
+    """A LOCALIZATION sweep: B1 = 2 x attempts; B2 = 2 x attempts + batched
+    verifications + marker pose refines."""
+    n, a, mk = run["launches"], run["attempts"], run["calls"]["marker_lm"]
+    check(n["B1"] == 2 * a, f"{what}: B1 launched {n['B1']} times for {a} track attempts")
+    check(n["B2"] == 2 * a + n["B2_batched"] + mk,
+          f"{what}: B2 launched {n['B2']} times for {a} attempts, {n['B2_batched']} batched, {mk} marker refines")
+
+
+def marker_loop_on(device: str) -> dict:
+    """detect_from_markers -> correct_map on the drifted ring map with
+    RING_MARKER seen by keyframe 0 and the returning keyframe, on one device."""
+    import numpy as np
+    from ucoslam_tpu_torch.config import Params
+
+    scene = ring_loop_scene()
+    params = Params().replace(maxDescDistance=60.0, KFMinConfidence=0.4)
+    m, det, slot, f = ring_loop_map(scene, params, device)
+    f = add_ring_marker(m, ring_marker(scene), slot, f, det.cam)
+    with contextlib.ExitStack() as stack:
+        calls = count_calls(stack)
+        reset_counts()
+        t0 = time.perf_counter()
+        info = det.detect_from_markers(m, slot, f)
+        ok = info.found and det.correct_map(m, info)
+        ms = 1e3 * (time.perf_counter() - t0)
+        launches = counts()
+    poses = m.h("kf_pose")[m.keyframes.active_slots()].copy()
+    return dict(info=info, ok=ok, launches=launches, calls=calls, poses=poses, ms=ms,
+                pose_err=None if not info.found else float(np.abs(info.expected_pose - scene["true_poses"][0]).max()),
+                drift_before=float(np.linalg.norm(scene["drift_poses"][9] - scene["true_poses"][9])),
+                drift_after=float(np.linalg.norm(poses[9] - scene["true_poses"][9])))
+
+
+def b2_marker_record(b2_args: dict) -> dict:
+    """Kernel B2 against its plain version on captured tracker inputs with
+    live marker rows: pose within 1e-4, the same mask, and its timing."""
+    import torch
+    from ucoslam_tpu_torch.ops.cuda import lm_kernel
+
+    pose0, X, uv, sig, valid = b2_args["tensors"]
+    cam, iters, rounds = b2_args["cam"], b2_args["iters"], b2_args["rounds"]
+    args = (pose0, X, uv, sig, valid, cam.fx, cam.fy, cam.cx, cam.cy)
+
+    def kernel():
+        return lm_kernel.motion_only_lm_fused(*args, iters=iters, rounds=rounds)
+
+    def plain():
+        return lm_kernel.motion_only_lm_plain(*args, iters=iters, rounds=rounds)
+
+    (pose_k, mask_k), (pose_p, mask_p) = kernel(), plain()
+    torch.cuda.synchronize()
+    err = float((pose_k - pose_p).abs().max())
+    live = int(valid[-64:].sum()) // 4
+    check(err < 1e-4, f"B2 on marker rows: pose differs by {err} from its plain version")
+    check(torch.equal(mask_k, mask_p), "B2 on marker rows: the inlier mask differs from its plain version")
+    ms, plain_ms = median_ms(kernel, 50), median_ms(plain, 5)
+    B = X.shape[0]
+    bound_ms, bound_by = b2_bound(B, iters, rounds, int(valid.sum()), int(mask_k.sum()), False)
+    sig_mk, sig_kp = float(sig[-1]), float(sig[:-64][valid[:-64]].median())
+    print(f"[8 B2 marker rows] B={B} {iters}x{rounds} live_markers={live} marker_sigma2={sig_mk:.4f} "
+          f"(keypoint rows' median {sig_kp:.4f}) pose_max_abs_err={err:.3e} masks equal kernel_ms={ms:.4f} "
+          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by})")
+    return dict(live_markers_marker_rows=live, max_abs_err_marker_rows=err, ms_marker_rows=ms,
+                plain_ms_marker_rows=plain_ms, bound_ms_marker_rows=bound_ms, bound_by_marker_rows=bound_by)
+
+
+def phase_markers(frames: int, workdir: str) -> dict:
+    """Phase 8 -> the kernels' launches on its main paths and B2's record on
+    marker rows."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.io.serialize import load_map_meta
+    from ucoslam_tpu_torch.markers import detector, native
+    from ucoslam_tpu_torch.markers.ippe import ippe_square_poses
+    from ucoslam_tpu_torch.optim import ba
+
+    jax_map, jax_json = marker_paths(frames)
+    ref, cam, seq, images = load_scene(jax_json)
+    params = Params.from_dict(load_map_meta(jax_map)["params"])  # what the JAX package mapped with
+    check(params.detectMarkers and params.aruco_markerSize == 0.6, "the marker reference's parameters")
+    truth, j1 = seq.marker_poses, ref["pass1"]
+    launches = {"B1": 0, "B2": 0, "B2_batched": 0}
+
+    def add(c):
+        for k in launches:
+            launches[k] += c[k]
+
+    # (a) SLAM from nothing, timed: the detector (native + IPPE), IPPE, local BA
+    mk_vertices, t_detect, t_ippe = [], [], []
+
+    def build(inner, *a, **kw):
+        out = inner(*a, **kw)
+        mk_vertices.append(len(out[3]))
+        return out
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(ba, "build_ba_problem", build))
+        stack.enter_context(patched(detector.ArucoDetector, "detect", timing(t_detect)))
+        stack.enter_context(patched(detector, "_markers_from", timing(t_ippe)))
+        run = slam_pass(params, cam, images)
+    slam, poses = run["slam"], run["poses"]
+    add(run["launches"])
+    for p in poses.values():
+        check(p.shape == (4, 4) and np.isfinite(p).all(), "(a): a non-finite pose")
+    ms = metric_summary(poses, seq)
+    mk_id, mk_pose, mk_valid = slam.map.h("mk_id", "mk_pose", "mk_pose_valid")
+    me = marker_errors(mk_id, mk_pose, mk_valid, poses, seq, truth)
+    slam.map.check_consistency()
+    check_slam_launches(run, "(a) pass 1")
+    print(f"[8 markers] (a) pass 1: frames={len(images)} tracked={len(poses)} (jax {j1['tracked']}) metric_ate="
+          f"{ms['metric_ate']:.6f} (jax {j1['metric_ate']:.6f}) horn_scale={ms['horn_scale']:.4f} (jax "
+          f"{j1['horn_scale']:.4f}) markers_posed={me['markers_posed']} (jax {j1['markers_posed']}) "
+          f"marker_err_mean={me['marker_err_mean']} max={me['marker_err_max']} (jax {j1['marker_err_mean']}) "
+          f"keyframes={slam.map.n_keyframes} (jax {j1['keyframes']}) points={slam.map.n_points} (jax "
+          f"{j1['points']}) init={run['init']} (jax {j1['init']}) metric_locked={slam._system.manager.metric_locked} "
+          f"marker_fallback_poses={slam._system.n_marker_poses} loop_closures={slam._system.manager.loop_closures} "
+          f"attempts={run['attempts']} insertions={run['insertions']} calls={ {k: run[k] for k in ('fusions', 'marker_lm')} } "
+          f"launches={run['launches']}")
+    check(len(poses) >= j1["tracked"] - 2, "(a): tracked over 2 frames fewer than the JAX package")
+    check(ms["metric_ate"] <= 1.2 * j1["metric_ate"] + 0.002, f"(a): metric ATE {ms['metric_ate']} over the limit")
+    check(me["markers_posed"] >= j1["markers_posed"] - 1, "(a): fewer markers with a map pose than the JAX package - 1")
+
+    def med(ts):
+        return f"{np.median(ts):.3f}" if len(ts) else "none"
+
+    local_ba = run["steps"]["local_ba"]
+    ippe_launches = count_launches(lambda: ippe_square_poses(
+        torch.from_numpy(seq.frame(30, device="cpu").markers.und_corners).cuda(),
+        torch.full((16,), 0.6, device="cuda"), cam))
+    print(f"[8 times] ippe_device_launches_per_call={ippe_launches} (torch.profiler, one frame's 16 slots) "
+          f"process_ms_median: track={med(run['t_frame']['track'])} (n={len(run['t_frame']['track'])}) "
+          f"keyframe={med(run['t_frame']['keyframe'])} (n={len(run['t_frame']['keyframe'])}) "
+          f"init={med(run['t_frame']['init'])}; detect_ms_median={med(t_detect)} (native + IPPE + fetch, "
+          f"n={len(t_detect)}) ippe_ms_median={med(t_ippe)} (n={len(t_ippe)}); local_ba_ms_median={med(local_ba)} "
+          f"(n={len(local_ba)}, marker vertices per BA problem {sorted(set(mk_vertices))}); "
+          f"new_keyframe_ms_median={med(run['steps']['new_keyframe'])}; g++_s={native.build_seconds:.2f}")
+    if frames != 60:
+        return dict(launches=launches)
+    # a second pass gives the same signature
+    again = slam_pass(params, cam, images)
+    add(again["launches"])
+    check_slam_launches(again, "(a) pass 1 again")
+    sig, sig_again = slam.getSignatureStr(), again["slam"].getSignatureStr()
+    check(sig == sig_again, "(a): a second pass 1 gave another signature")
+    del again
+    # save, reload (the same signature), the reverse sweep
+    path = os.path.join(workdir, "markers.slm")
+    slam.saveToFile(path)
+    rev = localize_sweep(path, cam, images, capture=True)
+    add(rev["launches"])
+    check_sweep_launches(rev, "(a) reverse sweep")
+    check(rev["signature"] == sig, "(a): the reloaded checkpoint has another signature")
+    rs = metric_summary(rev["poses"], seq)
+    j2 = ref["reverse"]
+    print(f"[8 markers] (a) signature={sig} again={sig_again}; reload + reverse sweep: tracked={len(rev['poses'])} "
+          f"(jax pass 2 {j2['tracked']}) metric_ate={rs['metric_ate']:.6f} (jax {j2['metric_ate']:.6f}) "
+          f"process_ms_median={med(rev['t_frame'])} launches={rev['launches']}")
+    check(len(rev["poses"]) >= j2["tracked"] - 2, "(a): the reverse sweep tracked over 2 frames fewer than JAX's")
+    check(rs["metric_ate"] <= 1.2 * j2["metric_ate"] + 0.002, f"(a): reverse-sweep metric ATE {rs['metric_ate']}")
+
+    # (b) the JAX package's marker map, reverse sweep; (c) the same with the
+    # keypoints of MARKER_STRIP_FRAMES removed and a reset
+    tol = 0.02 * ref["depth_extent"]
+    b2_args = rev["b2_args"]
+    for name, jr in (("(b) jax map", ref["reverse"]), ("(c) marker reloc", ref["reloc"])):
+        r = localize_sweep(jax_map, cam, images, reloc=name.startswith("(c)"), capture=b2_args is None)
+        add(r["launches"])
+        check_sweep_launches(r, name)
+        b2_args = b2_args or r["b2_args"]
+        jp = {int(k): np.asarray(v) for k, v in jr["poses"].items()}
+        s8 = metric_summary(r["poses"], seq)
+        dev = max(np.linalg.norm(camera_center(r["poses"][i]) - camera_center(jp[i]))
+                  for i in r["poses"] if i in jp)
+        posed = sum(i in r["poses"] for i in MARKER_STRIP_FRAMES)
+        print(f"[8 markers] {name}: tracked={len(r['poses'])} (jax {jr['tracked']}) metric_ate={s8['metric_ate']:.6f} "
+              f"(jax {jr['metric_ate']:.6f}) max_centre_dev={dev:.6f} (tol {tol:.6f}) stripped_frames_posed={posed} "
+              f"marker_fallback_poses={r['marker_poses']} process_ms_median={med(r['t_frame'])} launches={r['launches']}")
+        check(dev <= tol, f"{name}: a camera centre {dev} from JAX's (tol {tol})")
+        if name.startswith("(b)"):
+            check(len(r["poses"]) >= jr["tracked"], f"{name}: tracked fewer frames than the JAX package")
+            check(s8["metric_ate"] <= 1.2 * jr["metric_ate"] + 0.002, f"{name}: metric ATE {s8['metric_ate']}")
+        else:
+            check(posed >= jr["posed_by_markers"], f"{name}: the markers posed fewer stripped frames than JAX's")
+
+    # (d) the marker loop, on the card and on the CPU
+    card, cpu = marker_loop_on("cuda"), marker_loop_on("cpu")
+    add(card["launches"])
+    info = card["info"]
+    d_corr = float(np.abs(card["poses"] - cpu["poses"]).max())
+    print(f"[8 markers] (d) ring map + marker: found={info.found} matched_kf={info.matched_kf} "
+          f"n_corners={info.n_matches} expected_pose_err={card['pose_err']} corrected={card['ok']} drift "
+          f"{card['drift_before']:.4f} -> {card['drift_after']:.4f} (cpu {cpu['drift_after']:.4f}) "
+          f"card_vs_cpu_pose_max_abs={d_corr:.3e} ms={card['ms']:.3f} launches={card['launches']} calls={card['calls']}")
+    check(info.found and info.matched_kf == 0, "(d): the marker loop was not found against keyframe 0")
+    check(card["ok"] and card["drift_after"] < card["drift_before"], "(d): the correction did not lower the drift")
+    check(d_corr <= 1e-3, f"(d): card and CPU keyframe poses differ by {d_corr} after the correction")
+    c = card["launches"]
+    check(c["B2"] == card["calls"]["marker_lm"] == 1 and c["B2_batched"] == 0, f"(d): B2 launches {c}")
+    check(c["B1"] == card["calls"]["fusions"] > 0, f"(d): B1 launched {c['B1']} times for the seam fusions")
+
+    # (e) B2 on a phase-8 frame's marker rows
+    check(b2_args is not None, "(e): no phase-8 frame had 4 live markers in the tracker's rows")
+    return dict(launches=launches, b2=b2_marker_record(b2_args))
+
+
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--frames", type=int, default=60, choices=(60, 150),
-                    help="frames of the mono scenario that phase 5 maps (the JAX reference's length)")
+                    help="frames of the mono and markers scenarios that phases 5 and 8 map "
+                         "(the JAX references' length)")
     args = ap.parse_args(argv)
     try:
         import torch
@@ -1108,12 +1600,20 @@ def main(argv=None) -> int:
     launches = phase_slice(scene)
     lap("4")
     slam_map, slam_ref = reference_paths(args.frames)
+    failed = None
     with tempfile.TemporaryDirectory() as workdir:
-        slam = phase_slam(scene if args.frames == 60 else load_scene(slam_ref), slam_map, workdir)
-        launches = {k: n + slam["launches"][k] for k, n in launches.items()}
-        b1.update(slam["b1_fuse"])
+        try:
+            slam = phase_slam(scene if args.frames == 60 else load_scene(slam_ref), slam_map, workdir)
+        except SmokeFailure as e:
+            # phase 8 does not depend on phase 5: it still runs and reports,
+            # and the run fails after it
+            failed, slam = e, None
+            print(f"[5 slam] FAILED: {e}")
         lap("5")
-        if args.frames == 60:  # phases 6 and 7 run on the 60-frame scene
+        if slam is not None:
+            launches = {k: n + slam["launches"][k] for k, n in launches.items()}
+            b1.update(slam["b1_fuse"])
+        if slam is not None and args.frames == 60:  # phases 6 and 7 run on the 60-frame scene
             recovery = phase_recovery(scene)
             lap("6")
             loop = phase_loop(slam["checkpoint"], scene[1])
@@ -1121,6 +1621,13 @@ def main(argv=None) -> int:
             launches = {k: n + recovery["launches"][k] + loop["launches"][k] for k, n in launches.items()}
             b2["launches_batched"] = recovery["launches"]["B2_batched"] + loop["launches"]["B2_batched"]
             b2.update(reloc_process_ms=recovery["bow"]["reloc_ms"], reloc_bf_process_ms=recovery["bf"]["reloc_ms"])
+        markers = phase_markers(args.frames, workdir)
+        lap("8")
+        launches = {k: n + markers["launches"][k] for k, n in launches.items()}
+        b2["launches_batched"] = b2.get("launches_batched", 0) + markers["launches"]["B2_batched"]
+        b2.update(markers.get("b2", {}))
+    if failed is not None:
+        raise failed
     print(f"[time] seconds by phase {json.dumps(seconds)} total={time.perf_counter() - t_start:.1f}")
     check("jax" not in sys.modules, "jax was imported")
     check("ucoslam_tpu" not in sys.modules, "the JAX package ucoslam_tpu was imported")

@@ -274,7 +274,7 @@ def test_ba_solve_dense_on_card_matches_cpu(card):
     for i in range(29):
         slam.process_frame(seq.frame(i, device="cpu"))
     assert slam.map.n_keyframes >= 5
-    problem, _, pt_slots = ba.build_ba_problem(
+    problem, _, pt_slots, _ = ba.build_ba_problem(
         slam.map, seq.cam, fixed_kfs=slam.map.keyframes.active_slots()[:2], min_obs=3)
     rng = np.random.default_rng(0)
     pt = problem.pt_pos.numpy()
@@ -297,3 +297,63 @@ def test_ba_solve_dense_on_card_matches_cpu(card):
         assert float((getattr(got, k).cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max()), k
     assert torch.equal(got.obs_bad.cpu(), want.obs_bad)
     assert len(pt_slots) > 200
+
+
+@pytest.mark.parametrize("n_markers", [1, 4, 16])
+@pytest.mark.parametrize("iters,rounds", [(10, 4), (10, 2)])
+def test_lm_kernel_with_marker_rows_equals_plain(card, n_markers, iters, rounds):
+    """B = 2112 rows, the last 64 holding the corners of 1, 4 or 16 live
+    markers at the tracker's sigma2_mk: pose within 1e-4, the same mask."""
+    kw = chip_smoke.b2_marker_inputs(card, n_markers, seed=n_markers)
+    assert int(kw["valid"][-64:].sum()) == 4 * n_markers
+    args = (kw["pose_init"], kw["pts3d"], kw["uv"], kw["sigma2"], kw["valid"], 500.0, 500.0, 320.0, 240.0)
+    pose_k, mask_k = lm_kernel.motion_only_lm_fused(*args, iters=iters, rounds=rounds)
+    pose_p, mask_p = lm_kernel.motion_only_lm_plain(*args, iters=iters, rounds=rounds)
+    assert float((pose_k - pose_p).abs().max()) < 1e-4
+    assert torch.equal(mask_k, mask_p)
+
+
+def test_ippe_and_best_pose_from_markers_card_equals_cpu(card):
+    """IPPE over two frames' 16 slots and best_pose_from_valid_markers (its
+    B2 refine at B=64 included) on the card against the CPU. IPPE computes
+    in float64, so the homographies agree within 1e-9, the poses within
+    1e-4 where err_ratio >= 1.5 (a far marker among them, whose float32
+    pose the two devices put 1.4e-3 apart) and err_ratio within 1e-4
+    relative; the pose from the markers (float32, B2) within 1e-3."""
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
+    from ucoslam_tpu_torch.mapping.map import Map
+    from ucoslam_tpu_torch.markers.ippe import _homography_4pt, ippe_square_poses, marker_object_points
+    from ucoslam_tpu_torch.slam import markermap
+
+    seq = SyntheticSequence(n_frames=30, seed=13, n_markers=3, marker_size=0.5)
+    corners = torch.from_numpy(np.stack([seq.frame(i, device="cpu").markers.und_corners for i in (0, 9)]))
+    sizes = torch.full((2, 16), 0.5)
+    valid = torch.from_numpy(np.stack([seq.frame(i, device="cpu").markers.valid for i in (0, 9)]))
+    src = marker_object_points(sizes.double())[..., :2]
+    uv = (corners.double() - torch.tensor([seq.cam.cx, seq.cam.cy], dtype=torch.float64)) \
+        / torch.tensor([seq.cam.fx, seq.cam.fy], dtype=torch.float64)
+    H_card, H_cpu = _homography_4pt(src.to(card), uv.to(card)).cpu(), _homography_4pt(src, uv)
+    assert float((H_card - H_cpu)[valid].abs().max()) < 1e-9
+    want = ippe_square_poses(corners, sizes, seq.cam)
+    got = ippe_square_poses(corners.to(card), sizes.to(card), seq.cam)
+    got = [g.cpu()[valid] for g in got]
+    want = [w[valid] for w in want]
+    ratio_g, ratio_w = got[3] / got[2], want[3] / want[2]
+    sel = ratio_w >= 1.5
+    assert int(sel.sum()) >= 4
+    for k in (0, 1):
+        assert float((got[k] - want[k])[sel].abs().max()) < 1e-4, k
+    assert float(((ratio_g - ratio_w) / ratio_w).abs().max()) < 1e-4
+    params = Params().replace(maxMapPoints=256, maxKeyFrames=8, maxKeyPointsPerFrame=512, aruco_markerSize=0.5)
+    poses = {}
+    for device in ("cpu", card):
+        m = Map(params, device=device)
+        for i in (0, 6, 12, 18):
+            f = seq.frame(i, device=device)
+            f = f.replace(pose_f2g=torch.from_numpy(seq.gt_pose(i)).to(device))
+            markermap.record_marker_observations(m, m.add_keyframe(f), f.markers,
+                                                 markermap.resolve_marker_slots(m, f.markers))
+        assert markermap.update_marker_poses(m, seq.cam, params) == 3
+        poses[str(device)] = markermap.best_pose_from_valid_markers(m, seq.frame(24, device="cpu").markers, seq.cam)
+    assert np.abs(poses["cpu"] - poses[str(card)]).max() < 1e-3

@@ -21,11 +21,15 @@ def test_port_import_leaves_jax_out():
         "import sys\n"
         "import ucoslam_tpu_torch, ucoslam_tpu_torch.api, ucoslam_tpu_torch.io.synthetic\n"
         "import ucoslam_tpu_torch.ops.cuda.match_kernel, ucoslam_tpu_torch.ops.cuda.lm_kernel\n"
+        "import ucoslam_tpu_torch.markers.dictionary, ucoslam_tpu_torch.markers.native\n"
+        "import ucoslam_tpu_torch.markers.ippe, ucoslam_tpu_torch.markers.detector, ucoslam_tpu_torch.slam.markermap\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'ucoslam_tpu' not in sys.modules, 'ucoslam_tpu imported'\n"
         "from ucoslam_tpu_torch.ops import cuda\n"
         "assert cuda.load_library.cache_info().currsize == 0, 'a kernel was built at import'\n"
+        "from ucoslam_tpu_torch.markers import native\n"
+        "assert native.load_library.cache_info().currsize == 0, 'the marker detector was built at import'\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

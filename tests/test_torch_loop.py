@@ -14,7 +14,12 @@
   conditioned map part by ~5% in chi2; tests/test_torch_ba.py holds them
   within 1% on a map SLAM built.) Through the mapper
   (`MapManager._detect_and_close_loop`) both packages close the loop once
-  and keep the same points.
+  and keep the same points;
+- `LoopDetector.detect_from_markers` on the ring map with a marker of known
+  pose seen by keyframe 0 and by the returning keyframe
+  (chip_smoke.ring_marker): the same loop against keyframe 0, the expected
+  pose within 1e-4 of the reference's and 0.05 of the truth, then
+  `correct_map` on both, keyframe poses within 1e-3, the drift reduced.
 
 The ring map is built once, by chip_smoke.ring_loop_scene (numpy and the
 port's se3_exp, the reference test's draws in its order), and loaded into
@@ -36,8 +41,11 @@ from ucoslam_tpu.geometry.camera import CameraParams as RefCamera
 from ucoslam_tpu.mapping import Map as RefMap
 from ucoslam_tpu.mapping.frame import empty_frame as ref_empty_frame
 from ucoslam_tpu.mapping.kfdatabase import KeyFrameDataBase as RefKFDB
+from ucoslam_tpu.markers.ippe import ippe_square_poses as ref_ippe
+from ucoslam_tpu.mapping.frame import empty_markers as ref_empty_markers
 from ucoslam_tpu.optim.posegraph import pose_graph_solve as ref_pose_graph_solve
 from ucoslam_tpu.slam.loopclosure import LoopDetector as RefLoopDetector
+from ucoslam_tpu.slam.markermap import record_marker_observations as ref_record
 from ucoslam_tpu.slam.mapmanager import MapManager as RefMapManager
 from ucoslam_tpu_torch.config import Params as PortParams
 from ucoslam_tpu_torch.geometry import sim3
@@ -182,3 +190,50 @@ def test_detect_and_close_loop_through_the_mapper():
     assert mgr.loop_closures == ref_mgr.loop_closures == 1
     assert m.n_points == m_ref.n_points
     m.check_consistency()
+
+
+def ref_add_ring_marker(m, marker, kf_slot, f, cam):
+    """chip_smoke.add_ring_marker for the reference's map."""
+    st = m.state
+    slot = m.markers.alloc()
+    m.state = st._replace(
+        mk_id=st.mk_id.at[slot].set(marker["id"]), mk_active=st.mk_active.at[slot].set(True),
+        mk_size=st.mk_size.at[slot].set(marker["size"]), mk_pose=st.mk_pose.at[slot].set(jnp.asarray(marker["g2m"])),
+        mk_pose_valid=st.mk_pose_valid.at[slot].set(True),
+    )
+    slots = np.full(16, -1, np.int32)
+    slots[0] = slot
+    for kf, key in ((0, "corners_kf0"), (kf_slot, "corners_loop")):
+        corners = np.zeros((16, 4, 2), np.float32)
+        corners[0] = marker[key]
+        p1, p2, e1, e2 = (np.asarray(a) for a in ref_ippe(jnp.asarray(corners), jnp.full(16, marker["size"]), cam))
+        valid = np.arange(16) < 1
+        fm = ref_empty_markers()._replace(
+            id=np.where(valid, marker["id"], -1).astype(np.int32), corners=corners, und_corners=corners,
+            pose1=p1, pose2=p2, err_ratio=np.where(valid, e2 / np.clip(e1, 1e-9, None), 0.0).astype(np.float32),
+            valid=valid,
+        )
+        ref_record(m, kf, fm, slots)
+    return f._replace(markers=fm)
+
+
+def test_detect_from_markers_and_correct(ring):
+    scene, (m_ref, det_ref, f_ref, cam_ref), (m, det, f), slot = ring
+    marker = chip_smoke.ring_marker(scene)
+    # a fresh copy of each map: the ring fixture's maps are shared
+    m_ref2, det_ref2, _, f_ref2, _ = ref_ring_map(scene)
+    m2, det2, _, f2 = chip_smoke.ring_loop_map(scene, PortParams.from_dict(PARAMS.to_dict()), "cpu")
+    f_ref2 = ref_add_ring_marker(m_ref2, marker, slot, f_ref2, cam_ref)
+    f2 = chip_smoke.add_ring_marker(m2, marker, slot, f2, det2.cam)
+    info_ref = det_ref2.detect_from_markers(m_ref2, slot, f_ref2)
+    info = det2.detect_from_markers(m2, slot, f2)
+    assert info_ref.found and info.found
+    assert info.matched_kf == info_ref.matched_kf == 0
+    assert info.n_matches == info_ref.n_matches == 4
+    np.testing.assert_allclose(info.expected_pose, info_ref.expected_pose, atol=1e-4)
+    assert np.abs(info.expected_pose - scene["true_poses"][0]).max() < 0.05
+    assert det_ref2.correct_map(m_ref2, info_ref) and det2.correct_map(m2, info)
+    kfs = m2.keyframes.active_slots()
+    np.testing.assert_allclose(m2.h("kf_pose")[kfs], np.asarray(m_ref2.state.kf_pose)[kfs], atol=1e-3)
+    drift = [np.linalg.norm(p - scene["true_poses"][9]) for p in (scene["drift_poses"][9], m2.h("kf_pose")[9])]
+    assert drift[1] < drift[0]

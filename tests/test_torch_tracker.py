@@ -7,6 +7,9 @@ MapState and Frame, converted to tensors with map_state_from_numpy and
 frame_from_numpy. The reference runs its XLA path on the CPU (dense matcher,
 jnp.linalg.solve in the LM); the port runs the plain versions of
 kernels B1 and B2 (CG(8) solve). Pose within 1e-4, equal inlier counts.
+With two markers of known map pose in view, the tracker's marker-corner
+rows are equal, and _track_step (whose LM weighs them against the keypoint
+rows by sigma2_mk) gives the pose within 1e-4 and the same inliers.
 """
 
 import jax.numpy as jnp
@@ -21,6 +24,9 @@ from ucoslam_tpu.io.synthetic import SyntheticSequence as RefSequence
 from ucoslam_tpu.mapping.frame import strip_markers
 from ucoslam_tpu.mapping.map import Map as RefMap
 from ucoslam_tpu.mapping.map import empty_map_state
+from ucoslam_tpu.geometry import se3_exp as ref_se3_exp
+from ucoslam_tpu.markers.detector import SyntheticMarkerDetector as RefMarkerDetector
+from ucoslam_tpu_torch.mapping.frame import markers_from_numpy
 from ucoslam_tpu.slam import tracker as ref_tracker
 from ucoslam_tpu_torch.config import Params as PortParams
 from ucoslam_tpu_torch.geometry.camera import CameraParams
@@ -136,3 +142,41 @@ def test_fetch_to_host_round_trips():
     for t, a in zip(ts, out):
         assert a.shape == tuple(t.shape)
         np.testing.assert_array_equal(a, t.numpy())
+
+
+def test_marker_rows_and_track_step_match_reference(scene):
+    cam, seq, st, frame = scene
+    flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    g2m = {100 + i: np.asarray(ref_se3_exp(jnp.asarray(xi, jnp.float32))) @ flip
+           for i, xi in enumerate([(-1.0, 0.5, 4.5, 0.3, 0.2, 0.0), (1.2, -0.4, 5.0, -0.2, 0.3, 0.1)])}
+    markers = RefMarkerDetector(g2m, 0.5).detect_at_pose(seq.gt_pose(6), cam, noise=0.3, rng=np.random.default_rng(2))
+    assert int(np.asarray(markers.valid).sum()) == 2
+    st = st._replace(
+        mk_id=st.mk_id.at[:2].set(jnp.asarray([100, 101], jnp.int32)),
+        mk_pose=st.mk_pose.at[:2].set(jnp.asarray(np.stack([g2m[100], g2m[101]]))),
+        mk_pose_valid=st.mk_pose_valid.at[:2].set(True), mk_size=st.mk_size.at[:2].set(0.5),
+        mk_active=st.mk_active.at[:2].set(True),
+    )
+    frame = frame._replace(markers=markers)
+    params = PARAMS.replace(detectMarkers=True)
+    ref_map = RefMap(params)
+    ref_map.state = st
+    want_rows = [np.asarray(a) for a in ref_tracker.Tracker(params, cam)._marker_rows(ref_map, frame)]
+    state, fr = _port_inputs(st, frame)
+    fr = fr.replace(markers=markers_from_numpy(markers))
+    port_params = PortParams.from_dict(params.to_dict())
+    trk = tracker.Tracker(port_params, CameraParams.create(500.0, 500.0, 320.0, 240.0), "cpu")
+    rows = trk._marker_rows(Map(port_params, state), fr)
+    for g, w in zip(rows, want_rows):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert int(rows[2].sum()) == 8
+    prior = _prior(seq, 5, (0.04, -0.02, 0.03))
+    want = ref_tracker._track_step(
+        st, strip_markers(frame), cam, jnp.asarray(prior), jnp.float32(15.0), jnp.float32(60.0),
+        jnp.float32(1.2), *(jnp.asarray(w) for w in want_rows),
+    )
+    got = tracker._track_step(state, fr, CameraParams.create(500.0, 500.0, 320.0, 240.0), torch.from_numpy(prior),
+                              15.0, 60.0, 1.2, *rows)
+    assert int(got[4]) == int(want[4]) > 50
+    assert np.abs(got[0].numpy() - np.asarray(want[0])).max() < 1e-4
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))

@@ -36,6 +36,16 @@ written to `mono_<name>_jax.json` with per-frame poses and counts:
   sequence, then frames 30..59 of another scene, which relocalization cannot
   match; after `reseedAfterLostFrames` lost frames the system two-view
   re-seeds a new map segment.
+
+`--markers` runs the `markers` parity scenario instead (SEQUENCE with ten
+0.6 m ARUCO_MIP_36h12 markers, the native detector, PARAMS with
+`detectMarkers` and `aruco_markerSize=0.6`) and writes `markers[F]_map.slm`
+and `markers[F]_jax.json`: pass 1 (tracked frames, metric ATE without scale
+alignment, the Horn scale against the truth, markers with a map pose and
+their position error, the init kind and frame), the reverse LOCALIZATION
+sweep of the checkpoint, and the same sweep with `resetTracker()` at
+MARKER_RESET_FRAME and the keypoints of MARKER_STRIP_FRAMES removed after
+extraction, which only the marker fallback can pose.
 """
 
 from __future__ import annotations
@@ -44,9 +54,10 @@ import argparse
 import json
 import os
 
+import jax.numpy as jnp
 import numpy as np
 
-from chip_smoke import reseed_frame
+from chip_smoke import init_kind, marker_errors, metric_summary, reseed_frame
 from ucoslam_tpu.api import UcoSlam
 from ucoslam_tpu.config import Mode, Params
 from ucoslam_tpu.geometry.camera import CameraParams
@@ -62,6 +73,13 @@ RESET_FRAMES = (59, 50, 40, 30, 20, 10)
 GAP_FRAMES = tuple(range(30, 34))
 #: the re-seed scenario's images: frame i < at of SEQUENCE, else frame i of `sequence`
 SPLICE = dict(at=30, sequence=dict(n_frames=60, n_points=1600, seed=6))
+#: tools/parity/run_parity.py `markers`: SEQUENCE with ten 0.6 m markers
+MARKER_SEQUENCE = dict(SEQUENCE, n_markers=10, marker_size=0.6)
+MARKER_PARAMS = PARAMS.replace(detectMarkers=True, aruco_markerSize=0.6)
+#: the marker relocalization sweep: resetTracker() before this frame, and
+#: these frames' keypoints removed after extraction
+MARKER_RESET_FRAME = 20
+MARKER_STRIP_FRAMES = tuple(range(20, 25))
 
 
 def camera_center(pose_f2g: np.ndarray) -> np.ndarray:
@@ -191,11 +209,57 @@ def recovery(name: str, params: Params, cam: CameraParams, seq: SyntheticSequenc
     return out
 
 
+def markers_run(cam: CameraParams, seq: SyntheticSequence, map_path: str) -> dict:
+    """The `--markers` runs of the module docstring -> their summary."""
+    truth = seq._marker_detector.poses
+    slam = UcoSlam()
+    slam.setParams(None, MARKER_PARAMS, cam)
+    fwd, kind = {}, None
+    for i in range(seq.n_frames):
+        before = slam.map.n_keyframes
+        pose = slam.process(seq.render(i), fseq=i)
+        k = init_kind(slam, before)
+        if k is not None:
+            kind = dict(kind=k, frame=i)
+        if pose is not None:
+            fwd[i] = np.asarray(pose, np.float32)
+    st = slam.map.state
+    mk = marker_errors(np.asarray(st.mk_id), np.asarray(st.mk_pose), np.asarray(st.mk_pose_valid), fwd, seq, truth)
+    pass1 = dict(tracked=len(fwd), **metric_summary(fwd, seq), **mk, init=kind, keyframes=slam.map.n_keyframes,
+                 points=slam.map.n_points, insertions=slam._system.manager.kf_counter,
+                 loop_closures=slam._system.manager.loop_closures,
+                 signature=slam.map.signature(), poses=poses_json(fwd))
+    slam.saveToFile(map_path)
+    extent = map_depth_extent(slam)
+
+    sweeps = {}
+    for name in ("reverse", "reloc"):
+        loc = UcoSlam()
+        loc.readFromFile(map_path, cam)
+        loc.setMode(Mode.LOCALIZATION)
+        rev = {}
+        for i in reversed(range(seq.n_frames)):
+            if name == "reloc" and i == MARKER_RESET_FRAME:
+                loc.resetTracker()
+            f = loc._extractor.process(seq.render(i), i)
+            if name == "reloc" and i in MARKER_STRIP_FRAMES:
+                f = f._replace(valid=jnp.zeros_like(f.valid))
+            pose = loc.process_frame(f)
+            if pose is not None:
+                rev[i] = np.asarray(pose, np.float32)
+        sweeps[name] = dict(tracked=len(rev), **metric_summary(rev, seq), poses=poses_json(rev))
+    sweeps["reloc"].update(reset_frame=MARKER_RESET_FRAME, strip_frames=list(MARKER_STRIP_FRAMES),
+                           posed_by_markers=sum(str(i) in sweeps["reloc"]["poses"] for i in MARKER_STRIP_FRAMES))
+    return dict(params=dict(detectMarkers=True, aruco_markerSize=0.6), pass1=pass1, depth_extent=extent,
+                slm_bytes=os.path.getsize(map_path), **sweeps)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default="data/torch_port")
     ap.add_argument("--frames", type=int, default=SEQUENCE["n_frames"])
     ap.add_argument("--init-seeds", type=int, default=0)
+    ap.add_argument("--markers", action="store_true", help="the markers scenario (see above)")
     for flag in ("reloc", "reloc-brute-force", "gap", "reseed"):
         ap.add_argument(f"--{flag}", action="store_true", help="a recovery scenario (see above)")
     args = ap.parse_args(argv)
@@ -206,6 +270,17 @@ def main(argv=None) -> None:
     sequence = dict(SEQUENCE, n_frames=args.frames)
     seq = SyntheticSequence(cam=cam, **sequence)
     name = "mono" if args.frames == SEQUENCE["n_frames"] else f"mono{args.frames}"
+    if args.markers:
+        sequence = dict(MARKER_SEQUENCE, n_frames=args.frames)
+        seq = SyntheticSequence(cam=cam, **sequence)
+        name = name.replace("mono", "markers")
+        out = {"sequence": sequence, "camera": CAMERA,
+               **markers_run(cam, seq, os.path.join(args.out_dir, f"{name}_map.slm"))}
+        with open(os.path.join(args.out_dir, f"{name}_jax.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        print(json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "poses"} if isinstance(v, dict) else v)
+                          for k, v in out.items()}), flush=True)
+        return
     if args.init_seeds:
         runs = init_spread(PARAMS, cam, seq, args.init_seeds)
         with open(os.path.join(args.out_dir, f"{name}_init_spread_jax.json"), "w") as f:

@@ -2,11 +2,14 @@
 
 The scenarios are `tools/parity/run_parity.py`'s, rebuilt with the port's
 own `SyntheticSequence` (that script imports the JAX package): `mono` (60
-frames, 1600 points) and `loop_easy` (240 frames, 2200 points, the
-`sweep_back` trajectory that returns to its start), on the sequence's own
-camera. The protocol is `ucoslam_tpu/apps/test_sequence.py`'s, with its
-default parameters (maxMapPoints 8192, maxKeyFrames 64, 1024 keypoints,
-maxDescDistance 60; marker detection off, as the scenes hold no markers):
+frames, 1600 points), `loop_easy` (240 frames, 2200 points, the
+`sweep_back` trajectory that returns to its start) and `markers` (150
+frames, 1600 points, ten 0.6 m markers), on the sequence's own camera. The
+protocol is `ucoslam_tpu/apps/test_sequence.py`'s, with its default
+parameters (maxMapPoints 8192, maxKeyFrames 64, 1024 keypoints,
+maxDescDistance 60; marker detection off where the scene holds no markers,
+on with aruco_markerSize 0.6 for `markers`, whose ATE is then metric, without
+scale alignment, as run_parity.py takes it):
 pass 1 maps the rendered frames in SLAM mode, then `globalOptimization`,
 save; pass 2 reads the checkpoint, `setMode(LOCALIZATION)`,
 `resetTracker()` and localizes the frames again. It prints per pass the
@@ -43,6 +46,7 @@ from ucoslam_tpu_torch.io.synthetic import SyntheticSequence  # noqa: E402
 SCENARIOS = {
     "mono": dict(n_frames=60, n_points=1600, seed=5),
     "loop_easy": dict(n_frames=240, n_points=2200, seed=5, trajectory="sweep_back"),
+    "markers": dict(n_frames=150, n_points=1600, n_markers=10, marker_size=0.6, seed=5),
 }
 PARAMS = Params().replace(maxMapPoints=8192, maxKeyFrames=64, maxKeyPointsPerFrame=1024, maxDescDistance=60.0,
                           detectMarkers=False)
@@ -63,8 +67,16 @@ def timed_pass(slam: UcoSlam, images) -> tuple[dict, list]:
 def run(name: str) -> dict:
     seq = SyntheticSequence(**SCENARIOS[name])
     images = [seq.render(i) for i in range(seq.n_frames)]
+    markers = name == "markers"
+    params = PARAMS.replace(detectMarkers=True, aruco_markerSize=0.6) if markers else PARAMS
+
+    def ate(poses):
+        if len(poses) < 3:
+            return None
+        return chip_smoke.metric_summary(poses, seq)["metric_ate"] if markers else chip_smoke.ate_of(poses, seq)
+
     slam = UcoSlam(device="cuda")
-    slam.setParams(None, PARAMS, seq.cam)
+    slam.setParams(None, params, seq.cam)
     t0 = time.perf_counter()
     p1, ms1 = timed_pass(slam, images)
     t_ba = time.perf_counter()
@@ -84,13 +96,13 @@ def run(name: str) -> dict:
     n = seq.n_frames
     return dict(
         scenario=name, sequence=SCENARIOS[name], frames=n,
-        pass1=dict(tracked=len(p1), tracked_pct=len(p1) / n, ate=chip_smoke.ate_of(p1, seq) if len(p1) >= 3 else None,
+        pass1=dict(tracked=len(p1), tracked_pct=len(p1) / n, ate=ate(p1), metric_ate=markers,
                    ms_median=float(np.median(ms1)), ms_mean=float(np.mean(ms1)), seconds=t_map,
                    global_ba_s=t_ba, loop_queries=mgr.loop_detector.n_queries,
                    loop_candidates=mgr.loop_detector.n_candidates, loops_closed=mgr.loop_closures,
                    relocalizations=slam._system.tracker.n_relocalizations,
                    keyframes=slam.map.n_keyframes, points=slam.map.n_points),
-        pass2=dict(tracked=len(p2), tracked_pct=len(p2) / n, ate=chip_smoke.ate_of(p2, seq) if len(p2) >= 3 else None,
+        pass2=dict(tracked=len(p2), tracked_pct=len(p2) / n, ate=ate(p2),
                    ms_median=float(np.median(ms2))),
     )
 

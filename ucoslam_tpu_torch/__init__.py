@@ -13,9 +13,12 @@ Ported so far: monocular SLAM in sequential mode (`UcoSlam.setParams` ->
 map (`readFromFile` -> `setMode(Mode.LOCALIZATION)` -> `process(img)`),
 relocalization after `resetTracker()` or a lost frame, the re-seed of a new
 map segment after a long loss, keypoint loop closure and
-`globalOptimization`. Markers, stereo/RGB-D input, the point-major BA, the
-async mapper and `.fbow` vocabularies are not ported yet (ROADMAP.md,
-Queue 1 items 3, 4, 6 and 7).
+`globalOptimization`, and ArUco markers (the native detector, built with
+g++; IPPE; marker and hybrid init with metric scale; marker rows in the
+tracker's LM; marker vertices in BA; the marker relocalization fallback;
+marker loops). Stereo/RGB-D input, the point-major BA, the async mapper and
+`.fbow` vocabularies are not ported yet (ROADMAP.md, Queue 1 items 4, 6
+and 7).
 
 This package imports neither jax nor anything of `ucoslam_tpu`: `Params`,
 `Mode` and `TrackingState` are its own (`ucoslam_tpu_torch.config`).

@@ -6,8 +6,10 @@ frame -> `saveToFile` (map, tracker state, keyframe database, extractor
 sensitivity); `readFromFile` restores all of it; `setMode`,
 `updateParams`, `resetTracker` (the next frame relocalizes),
 `globalOptimization` (full-map BA) and the pose and signature queries.
-Stereo and RGB-D input, markers and `.fbow` vocabularies are not ported yet
-(ROADMAP.md, Queue 1 items 3, 4 and 7).
+With `detectMarkers` (the default) `setParams` and `readFromFile` build the
+native ArUco detector from the `aruco_*` parameters and raise when it cannot
+be built. Stereo and RGB-D input and `.fbow` vocabularies are not ported yet
+(ROADMAP.md, Queue 1 items 4 and 7).
 """
 
 from __future__ import annotations
@@ -21,8 +23,23 @@ from ucoslam_tpu_torch.io.serialize import load_map, load_map_extra_arrays, load
 from ucoslam_tpu_torch.mapping.frame import Frame
 from ucoslam_tpu_torch.mapping.kfdatabase import KeyFrameDataBase
 from ucoslam_tpu_torch.mapping.map import Map
+from ucoslam_tpu_torch.markers.detector import ArucoDetector
 from ucoslam_tpu_torch.optim.ba import global_bundle_adjustment
-from ucoslam_tpu_torch.slam.system import NOT_PORTED_MARKERS, System
+from ucoslam_tpu_torch.slam.system import System
+
+
+def build_marker_detector_from_params(params: Params, device="cuda") -> ArucoDetector | None:
+    """The marker detector the `aruco_*` parameters describe, or None when
+    `detectMarkers` is off; shared by setParams and readFromFile. Raises
+    when the native detector cannot be built, and NotImplementedError for a
+    dictionary without a native table."""
+    if not params.detectMarkers:
+        return None
+    return ArucoDetector(
+        dictionary=params.aruco_Dictionary, marker_size=params.aruco_markerSize,
+        detection_mode=params.aruco_DetectionMode,
+        min_marker_size=params.aruco_minMarkerSize, device=device,
+    )
 
 
 class UcoSlam:
@@ -35,12 +52,12 @@ class UcoSlam:
 
     def setParams(self, world_map: Map | None, params: Params, cam: CameraParams,
                   vocabulary: str | None = None, marker_detector=None) -> None:
-        if marker_detector is not None or params.detectMarkers:
-            raise NotImplementedError(NOT_PORTED_MARKERS)
         self._params = params
         self._map = world_map if world_map is not None else Map(params, device=self.device)
         self._system = System(params, cam, self._map, device=self.device)
-        self._extractor = FrameExtractor(params, cam, self.device)
+        if marker_detector is None:
+            marker_detector = build_marker_detector_from_params(params, self.device)
+        self._extractor = FrameExtractor(params, cam, self.device, marker_detector)
         if vocabulary:
             self._system.manager.kfdb.load_vocabulary(vocabulary)
 
@@ -102,8 +119,6 @@ class UcoSlam:
         the tracker state (pose, velocity, state, mode, counters)."""
         self._map = load_map(path, self.device)
         params = self._params = self._map.params
-        if params.detectMarkers:
-            raise NotImplementedError(NOT_PORTED_MARKERS)
         arrays = load_map_extra_arrays(path)
         meta = load_map_meta(path).get("extra", {})
         kfdb = None
@@ -121,7 +136,8 @@ class UcoSlam:
                 for s in self._map.keyframes.active_slots():
                     kfdb.add(int(s), st.kf_desc[int(s)], st.kf_kpt_valid[int(s)])
         sysd = self._system = System(params, cam, self._map, kfdb=kfdb, device=self.device)
-        self._extractor = FrameExtractor(params, cam, self.device)
+        # the extractor as it was saved, the marker detector included
+        self._extractor = FrameExtractor(params, cam, self.device, build_marker_detector_from_params(params, self.device))
         if meta.get("fast_threshold") is not None:
             self._extractor.orb.fast_threshold = float(meta["fast_threshold"])
         if "metric_locked" in meta:

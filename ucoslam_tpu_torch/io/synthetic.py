@@ -1,10 +1,14 @@
 """Synthetic sequences with ground truth: rendered images and oracle frames.
 
 Port of `ucoslam_tpu/io/synthetic.py` (`SyntheticSequence.__init__`,
-`render`, `frame`, `gt_pose`, `gt_positions`) without markers. It draws the
-same random streams in the same order, so the images are byte-identical to
-the reference's for the same arguments, and the oracle frames hold the same
-keypoints and descriptors.
+`render`, `frame`, `gt_pose`, `gt_positions`). It draws the same random
+streams in the same order, so the images are byte-identical to the
+reference's for the same arguments (up to the marker poses' float32
+exponential), and the oracle frames hold the same keypoints, descriptors
+and marker detections. With `n_markers`, tilted square ARUCO_MIP_36h12
+markers stand among the quads (the quads around them cleared), the oracle
+frames carry their projected corners, and the rendered images their real
+bitmaps.
 """
 
 from __future__ import annotations
@@ -13,7 +17,10 @@ import numpy as np
 import torch
 
 from ucoslam_tpu_torch.geometry.camera import CameraParams
+from ucoslam_tpu_torch.geometry.se3 import se3_exp
 from ucoslam_tpu_torch.mapping.frame import Frame, empty_frame, tensor_from_numpy
+from ucoslam_tpu_torch.markers.detector import SyntheticMarkerDetector
+from ucoslam_tpu_torch.markers.dictionary import marker_texture
 
 
 def _lookat(eye: np.ndarray, target: np.ndarray, up=np.array([0.0, -1.0, 0.0])):
@@ -44,11 +51,11 @@ class SyntheticSequence:
         seed: int = 0,
         motion_scale: float = 1.0,
         n_markers: int = 0,
+        marker_size: float = 0.5,  # side length (m)
+        marker_noise: float = 0.2,  # oracle frames: corner noise (px)
         roll_deg: float = 0.0,  # sinusoidal camera roll over the sequence
         brightness_drift: float = 0.0,  # per-frame global gain amplitude
     ):
-        if n_markers:
-            raise NotImplementedError("markers are not ported yet (ROADMAP.md, Queue 1 item 3: markers)")
         self.cam = cam or CameraParams.create(
             500.0, 500.0, 320.0, 240.0, width=640, height=480, bl=0.1
         )
@@ -89,6 +96,34 @@ class SyntheticSequence:
         self.point_d0 = rng_sz.uniform(10.0, 14.0, n_points).astype(np.float32)
         self.n_octaves = 8
         self.scale_factor = 1.2
+
+        # markers: tilted squares scattered across the slab, drawn from the
+        # scene's own stream after the points, facing the camera side (the
+        # flip: the trajectory looks along +z)
+        self.marker_size = marker_size
+        self.marker_noise = marker_noise
+        self._marker_detector = None
+        if n_markers > 0:
+            flip = np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+            marker_poses = {}
+            for mid in range(n_markers):
+                xi = np.concatenate([
+                    [rng.uniform(-2.5, 2.5), rng.uniform(-2, 2), rng.uniform(4.5, 6.5)],
+                    rng.uniform(-0.5, 0.5, 3),
+                ]).astype(np.float32)
+                marker_poses[100 + mid] = se3_exp(torch.from_numpy(xi)).numpy() @ flip
+            # clear the quads near the markers so that none occludes one
+            centers = np.stack([T[:3, 3] for T in marker_poses.values()])
+            r_excl = 0.5 * marker_size * 1.45 * np.sqrt(2.0) + 0.55
+            keep = np.linalg.norm(self.points[:, None, :] - centers[None, :, :], axis=-1).min(1) > r_excl
+            self.points = self.points[keep]
+            self.descs = self.descs[keep]
+            self.brightness = self.brightness[keep]
+            self.quad_half = self.quad_half[keep]
+            self.quad_theta = self.quad_theta[keep]
+            self.quad_tex = self.quad_tex[keep]
+            self.point_d0 = self.point_d0[keep]
+            self._marker_detector = SyntheticMarkerDetector(marker_poses, marker_size)
 
         self.poses = []  # (4, 4) pose_f2g (world -> camera) per frame
         center = np.array([0.0, 0.0, 6.0])
@@ -131,10 +166,16 @@ class SyntheticSequence:
         """(F, 3) camera centres in world coordinates."""
         return np.stack([-T[:3, :3].T @ T[:3, 3] for T in self.poses])
 
+    @property
+    def marker_poses(self) -> dict[int, np.ndarray]:
+        """marker id -> (4, 4) marker -> world pose (empty without markers)."""
+        return {} if self._marker_detector is None else self._marker_detector.poses
+
     def frame(self, i: int, device="cuda") -> Frame:
         """Oracle Frame of index i: the visible blobs' projections with
-        pixel noise and flipped descriptor bits, deterministic per (seed, i);
-        the same draws in the same order as the reference's."""
+        pixel noise and flipped descriptor bits, and the visible markers'
+        corners with corner noise, deterministic per (seed, i); the same
+        draws in the same order as the reference's."""
         rng = np.random.default_rng(7919 * i + 13)
         T = self.poses[i]
         R, t = T[:3, :3], T[:3, 3]
@@ -167,11 +208,14 @@ class SyntheticSequence:
         def t_(a):
             return tensor_from_numpy(a, device)
 
-        f = empty_frame(cap, device)
-        return f.replace(
+        f = empty_frame(cap, device).replace(
             fseq=i, xy=t_(xy), und_xy=t_(xy), desc=t_(desc), valid=t_(np.arange(cap) < n),
             depth=t_(depth), octave=t_(octave),
         )
+        if self._marker_detector is not None:
+            f = f.replace(markers=self._marker_detector.detect_at_pose(
+                T, self.cam, noise=self.marker_noise, rng=rng, device=device))
+        return f
 
     def render(self, i: int) -> np.ndarray:
         """(H, W) float32 image of frame i: homography-rasterized textured
@@ -193,6 +237,15 @@ class SyntheticSequence:
             (z[j], R @ U[j], R @ V[j], cam_pts[j], self.quad_tex[j])
             for j in range(len(self.points))
         ]
+        # the markers' real bitmaps as world-anchored planes: the quad spans
+        # the quiet zone, the black border the physical marker size
+        if self._marker_detector is not None:
+            for mid, g2m in sorted(self.marker_poses.items()):
+                tex, ratio = marker_texture(mid % 250, px_per_cell=8)
+                Tm = T @ g2m  # marker -> camera
+                hext = 0.5 * self.marker_size * ratio
+                # row 0 of tex is the marker's top, +y
+                items.append((float(Tm[2, 3]), Tm[:3, 0] * hext, Tm[:3, 1] * hext, Tm[:3, 3], np.flipud(tex).copy()))
         items.sort(key=lambda it: -it[0])  # painter's algorithm, far to near
         for zj, Uc, Vc, Cc, tex in items:
             if zj < 0.5:

@@ -1,22 +1,62 @@
-"""Per-frame record: fixed-capacity keypoint tensors (monocular fields).
+"""Per-frame record: fixed-capacity keypoint tensors and marker observations.
 
-Port of `ucoslam_tpu/mapping/frame.py` without the marker observations
-(markers are not ported yet), plus the keyframe-slot view of
+Port of `ucoslam_tpu/mapping/frame.py`, plus the keyframe-slot view of
 `slam/mapmanager.py` (`frame_from_kf`) and the bundled device->host copy
 (`fetch_to_host`). Descriptors are (N, 8) int32 tensors holding the
-reference's uint32 bits.
+reference's uint32 bits. A frame's markers are host numpy arrays, as the
+reference's detector leaves them: every consumer (the tracker's marker rows,
+the marker map, the keyframe policy) reads them on the host, and the
+detector fetches them from the device in one transfer.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 #: marker observation slots per frame (the reference's MAX_MARKERS_PER_FRAME)
 MAX_MARKERS_PER_FRAME = 16
+
+
+@dataclass
+class FrameMarkers:
+    """ArUco observations of one frame, padded to MAX_MARKERS_PER_FRAME
+    slots (host numpy): two IPPE poses per marker and the ratio of their
+    reprojection errors."""
+
+    id: np.ndarray  # (M,) int32 aruco id, -1 = empty slot
+    corners: np.ndarray  # (M, 4, 2) float32 raw pixel corners
+    und_corners: np.ndarray  # (M, 4, 2) float32 undistorted corners
+    pose1: np.ndarray  # (M, 4, 4) float32 best IPPE pose (marker -> camera)
+    pose2: np.ndarray  # (M, 4, 4) float32 second IPPE pose
+    err_ratio: np.ndarray  # (M,) float32 err2 / err1 (>= 1; large = unambiguous)
+    valid: np.ndarray  # (M,) bool
+
+
+def empty_markers(m: int = MAX_MARKERS_PER_FRAME) -> FrameMarkers:
+    eye = np.broadcast_to(np.eye(4, dtype=np.float32), (m, 4, 4)).copy()
+    return FrameMarkers(
+        id=np.full(m, -1, np.int32),
+        corners=np.zeros((m, 4, 2), np.float32),
+        und_corners=np.zeros((m, 4, 2), np.float32),
+        pose1=eye,
+        pose2=eye.copy(),
+        err_ratio=np.zeros(m, np.float32),
+        valid=np.zeros(m, bool),
+    )
+
+
+def markers_from_numpy(leaves) -> FrameMarkers:
+    """FrameMarkers from a mapping or an object with the fields (e.g. the
+    reference's FrameMarkers), each leaf copied to numpy."""
+    get = leaves.get if isinstance(leaves, dict) else lambda k: getattr(leaves, k)
+    dtypes = dict(id=np.int32, valid=bool)
+    return FrameMarkers(**{
+        f.name: np.array(get(f.name), dtypes.get(f.name, np.float32)) for f in dataclasses.fields(FrameMarkers)
+    })
 
 
 @dataclass
@@ -34,6 +74,7 @@ class Frame:
     valid: torch.Tensor  # (N,) bool
     ids: torch.Tensor  # (N,) int32 map-point slot or -1
     pose_f2g: torch.Tensor  # (4, 4) float32 global -> camera
+    markers: FrameMarkers = field(default_factory=empty_markers)
 
     @property
     def n(self) -> int:
@@ -114,10 +155,13 @@ def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
 
 def frame_from_numpy(arrays: dict, device) -> Frame:
     """Frame from numpy arrays keyed by field name (e.g. a reference Frame's
-    `_asdict()` converted leaf by leaf); marker fields are ignored."""
+    `_asdict()` converted leaf by leaf); `markers`, when given, is a mapping
+    or an object holding the marker fields (empty markers otherwise)."""
     kw = {
         f.name: tensor_from_numpy(arrays[f.name], device)
         for f in dataclasses.fields(Frame)
-        if f.name != "fseq"
+        if f.name not in ("fseq", "markers")
     }
-    return Frame(fseq=int(np.asarray(arrays["fseq"])), **kw)
+    markers = arrays.get("markers")
+    return Frame(fseq=int(np.asarray(arrays["fseq"])), markers=empty_markers() if markers is None
+                 else markers_from_numpy(markers), **kw)

@@ -340,6 +340,17 @@ def op_scale_map(state: MapState, s: float) -> MapState:
     )
 
 
+def op_apply_transform(state: MapState, T: torch.Tensor) -> MapState:
+    """Rigidly transform the whole map by T (global' = T @ global)."""
+    R, t = T[:3, :3], T[:3, 3]
+    return state.replace(
+        pt_pos=state.pt_pos @ R.T + t,
+        pt_normal=state.pt_normal @ R.T,
+        kf_pose=state.kf_pose @ torch.linalg.inv(T),
+        mk_pose=T @ state.mk_pose,
+    )
+
+
 # ----------------------------------------------------------------------
 # Host wrapper
 # ----------------------------------------------------------------------
@@ -582,6 +593,30 @@ class Map:
 
     def scale(self, s: float) -> None:
         self.state = op_scale_map(self.state, s)
+
+    def apply_transform(self, T) -> None:
+        self.state = op_apply_transform(self.state, torch.as_tensor(np.asarray(T, np.float32), device=self.device))
+
+    def center_ref_system_in_marker(self, marker_id: int) -> bool:
+        """Re-anchor the map's reference system at a marker (its pose
+        becomes the identity). -> whether the marker has a map pose."""
+        mk_id, mk_valid = self.h("mk_id", "mk_pose_valid")
+        hits = np.nonzero((mk_id == marker_id) & mk_valid)[0]
+        if len(hits) == 0:
+            return False
+        self.apply_transform(np.linalg.inv(self.h("mk_pose")[hits[0]]).astype(np.float32))
+        return True
+
+    def set_markers(self, slots, **fields) -> None:
+        """Write the rows `slots` of marker fields (`mk_id=[...]`,
+        `mk_pose=(n, 4, 4)`, ...) given as host arrays."""
+        idx = torch.as_tensor(np.asarray(slots, np.int64), device=self.device)
+        updates = {}
+        for name, values in fields.items():
+            t = getattr(self.state, name).clone()
+            t[idx] = torch.as_tensor(np.asarray(values), device=self.device).to(t.dtype)
+            updates[name] = t
+        self.state = self.state.replace(**updates)
 
     def frame_median_depth(self, kf_slot: int) -> float:
         """Median depth of the points a keyframe observes."""

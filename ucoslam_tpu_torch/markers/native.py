@@ -1,0 +1,126 @@
+"""ctypes binding of the native C++ ArUco detector (`native/aruco_detector.cpp`).
+
+Port of `ucoslam_tpu/markers/native.py` with the same C ABI, built by the
+port itself: `g++` compiles the checkout's source into
+`build/ucoslam_tpu_torch/`, under a name made from a hash of the source, its
+headers, the flags (as the CUDA libraries are named) and the compiler and
+host CPU that `-march=native` stands for, at the first detection, never when
+the module is imported: a library built on one machine is never loaded on
+another whose CPU or compiler differs. The port never builds into
+`native/` and never loads a library it finds there. A missing compiler or a
+failed build or load raises: there is no other detector to fall back to.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+
+from ucoslam_tpu_torch.markers.dictionary import NATIVE_DIR, dict_bits, load_codewords
+
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ucoslam_tpu_torch"
+SOURCE = NATIVE_DIR / "aruco_detector.cpp"
+HEADERS = (NATIVE_DIR / "aruco_mip_36h12.h",)
+#: native/Makefile's flags, so the port's library computes what the JAX
+#: package's does, bit for bit
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared")
+
+#: seconds g++ took in this process (0.0 when the library was already built)
+build_seconds = 0.0
+
+
+def _compiler() -> str:
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError("g++ not found: the native ArUco detector cannot be built")
+    return cxx
+
+
+@functools.cache
+def _host_target() -> bytes:
+    """The compiler's version and the target options `-march=native`
+    enables on this CPU, as g++ lists them."""
+    cxx = _compiler()
+    parts = []
+    for args in (["--version"], ["-march=native", "-Q", "--help=target"]):
+        out = subprocess.run([cxx, *args], capture_output=True, text=True, timeout=60)
+        if out.returncode != 0:
+            raise RuntimeError(f"g++ {' '.join(args)} failed:\n{out.stderr}")
+        parts.append(out.stdout)
+    return "".join(parts).encode()
+
+
+def library_path() -> Path:
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in (SOURCE, *HEADERS)) + " ".join(CXX_FLAGS).encode()
+                            + _host_target())
+    return BUILD_DIR / f"libaruco_native_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the detector into build/ucoslam_tpu_torch/ unless it is there."""
+    global build_seconds
+    lib = library_path()
+    if lib.exists():
+        return lib
+    cxx = _compiler()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
+    out = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True,
+                         timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"g++ failed on {SOURCE}:\n{out.stderr}")
+    os.replace(tmp, lib)
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the detector; cached per process."""
+    lib = ctypes.CDLL(str(build()))
+    lib.aruco_detect.restype = ctypes.c_int
+    lib.aruco_detect.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_uint64), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+    ]
+    return lib
+
+
+def detect_markers_native(gray: np.ndarray, max_out: int = 32, min_perimeter: int = 40, max_correction: int = 1,
+                          dictionary: str = "ARUCO_MIP_36h12"):
+    """(H, W) gray image -> (ids (n,) int32, corners (n, 4, 2) float32).
+    ARUCO_MIP_36h12 is the library's built-in table; another dictionary's
+    codewords are passed in from its header."""
+    lib = load_library()
+    img = np.ascontiguousarray(np.clip(gray, 0, 255), np.uint8)
+    if img.ndim != 2:
+        raise ValueError(f"expected a gray (H, W) image, got shape {img.shape}")
+    h, w = img.shape
+    corners = np.zeros((max_out, 4, 2), np.float32)
+    ids = np.zeros(max_out, np.int32)
+    words = None
+    if dictionary == "ARUCO_MIP_36h12":
+        dict_ptr, dict_size, nbits = None, 0, 0
+    else:
+        words = np.ascontiguousarray(load_codewords(dictionary), np.uint64)
+        dict_ptr = words.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
+        dict_size, nbits = len(words), dict_bits(dictionary)
+    n = lib.aruco_detect(
+        img.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)), w, h,
+        dict_ptr, dict_size, nbits, min_perimeter, max_correction,
+        corners.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+        ids.ctypes.data_as(ctypes.POINTER(ctypes.c_int)), max_out,
+    )
+    del words  # the codewords stay alive until the call returns
+    return ids[:n].copy(), corners[:n].copy()

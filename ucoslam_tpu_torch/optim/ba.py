@@ -1,23 +1,27 @@
 """Schur-complement Levenberg-Marquardt bundle adjustment (dense branch).
 
-Port of the keypoint path of `ucoslam_tpu/optim/ba.py`: SE3 keyframe
+Port of the dense branch of `ucoslam_tpu/optim/ba.py`: SE3 keyframe
 vertices, XYZ point vertices marginalized by the Schur complement, mono 2D
 edges with information 1/sigma^2 (plus a masked stereo disparity row),
-two stages of fixed LM iterations (Huber with delta^2 = chi2 first, then
-the outliers demoted and the kernel dropped), adaptive damping, and the
-bad-association sweep. The reduced camera system is assembled as one
-matrix product `GY @ GA.T` and solved densely (`torch.linalg.solve`), as
-the reference does for small windows. Every per-camera reduction is a
-gather through the static camera->observation table and a sum, so the
-card gives the same result on every run.
+free SE3 marker vertices with 8-D corner edges (their weight balanced
+against the keypoint edges of each frame), planar relative edges between
+markers when `inPlaneMarkers` is on, two stages of fixed LM iterations
+(Huber with delta^2 = chi2 first, then the keypoint outliers demoted and the
+kernel dropped; marker edges stay quadratic and are never demoted),
+adaptive damping, and the bad-association sweep. The reduced system over
+V = K cameras + M markers is assembled as one matrix product `GY @ GA.T`
+plus the marker blocks, and solved densely (`torch.linalg.solve`), as the
+reference does for small windows. Every per-camera reduction is a gather
+through the static camera->observation table and a sum, and the marker
+blocks are added through one-hot products, so the card sums in a fixed
+order and gives the same result on every run.
 
 `local_bundle_adjustment` solves a covisibility window,
 `global_bundle_adjustment` the whole map (the first keyframe fixed): a map
 of up to 112 keyframes pads to fewer than 128 slots and takes the dense
-route. Not ported (each raises NotImplementedError naming its ROADMAP item):
-marker vertices and planar edges, the matrix-free CG solve and the
-point-major solver the reference routes problems of >= 128 keyframe slots
-to.
+route. Not ported (raising NotImplementedError naming its ROADMAP item): the
+matrix-free CG solve, and the point-major solver the reference routes
+marker-free problems of >= 128 vertex slots to.
 """
 
 from __future__ import annotations
@@ -32,16 +36,20 @@ from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.geometry.se3 import _hat, se3_exp
 from ucoslam_tpu_torch.mapping.frame import fetch_to_host
 from ucoslam_tpu_torch.mapping.map import Map
+from ucoslam_tpu_torch.markers.ippe import marker_object_points
 
 #: keyframe-slot bucket of a problem (the reference's K quantum): the
 #: dense/point-major rule sees the same V as the reference
 K_BUCKET = 16
+#: marker-vertex, marker-observation and planar-edge buckets (the reference's)
+M_BUCKET, MO_BUCKET, PLAN_BUCKET = 4, 16, 4
 
 
 @dataclass
 class BAProblem:
-    """Keypoint-only BA problem (K padded to the bucket; masks define the
-    live part). Index tensors are int64."""
+    """BA problem (K, M and the marker edges padded to their buckets; masks
+    define the live part). Index tensors are int64. Without markers the
+    marker fields are None; without planar edges the plan_* fields are."""
 
     cam_pose: torch.Tensor  # (K, 4, 4) pose_f2g
     cam_fixed: torch.Tensor  # (K,) bool, held constant
@@ -57,6 +65,21 @@ class BAProblem:
     pt_obs: torch.Tensor  # (P, MO) obs index per point (-1 pad)
     bf: float  # baseline * fx
     cam_obs: torch.Tensor  # (K, CO) obs index per camera (-1 pad)
+    # ---- marker SE3 vertices and 8-D corner edges ----
+    mk_pose: torch.Tensor | None = None  # (M, 4, 4) pose_g2m (marker -> global)
+    mk_fixed: torch.Tensor | None = None  # (M,) bool
+    mk_valid: torch.Tensor | None = None  # (M,) bool
+    mk_obj: torch.Tensor | None = None  # (M, 4, 3) corner object points
+    mobs_cam: torch.Tensor | None = None  # (Mo,) camera vertex
+    mobs_mk: torch.Tensor | None = None  # (Mo,) marker vertex
+    mobs_uv: torch.Tensor | None = None  # (Mo, 4, 2) observed undistorted corners
+    mobs_w: torch.Tensor | None = None  # (Mo,) information weight
+    mobs_valid: torch.Tensor | None = None  # (Mo,) bool
+    # ---- planar relative edges (inPlaneMarkers) ----
+    plan_ref: torch.Tensor | None = None  # (Rp,) reference marker vertex
+    plan_other: torch.Tensor | None = None  # (Rp,) other marker vertex
+    plan_w: torch.Tensor | None = None  # (Rp,) information weight
+    plan_valid: torch.Tensor | None = None  # (Rp,) bool
 
 
 @dataclass
@@ -66,6 +89,7 @@ class BAResult:
     obs_chi2: torch.Tensor  # (O,) final per-observation chi2
     obs_bad: torch.Tensor  # (O,) bool, bad association (chi2 / negative depth)
     cost_history: torch.Tensor  # (stages * iters,)
+    mk_pose: torch.Tensor | None = None  # (M, 4, 4) optimized marker poses
 
 
 def _residual_jac(problem: BAProblem, cam_pose, pt_pos, cam: CameraParams):
@@ -130,15 +154,80 @@ def _delta2(problem: BAProblem) -> torch.Tensor:
     return torch.where(problem.obs_depth > 0, CHI2_3D, CHI2_2D)
 
 
-def _total_cost(problem: BAProblem, cam_pose, pt_pos, cam, active, robust: bool):
-    """LM acceptance cost: Huber in stage 0, quadratic after."""
+def _marker_residual_jac(problem: BAProblem, cam_pose, mk_pose, cam: CameraParams):
+    """8-row marker corner residuals (corners X_w = T_g2m obj projected
+    through the camera) and their Jacobians wrt the camera and the marker
+    (left perturbations). -> r (Mo, 8), Jc (Mo, 8, 6), Jm (Mo, 8, 6)."""
+    Tc = cam_pose[problem.mobs_cam]  # (Mo, 4, 4)
+    Tm = mk_pose[problem.mobs_mk]
+    obj = problem.mk_obj[problem.mobs_mk]  # (Mo, 4, 3)
+    Rc, tc = Tc[:, :3, :3], Tc[:, :3, 3]
+    Xw = obj @ Tm[:, :3, :3].transpose(-1, -2) + Tm[:, None, :3, 3]  # (Mo, 4, 3)
+    q = Xw @ Rc.transpose(-1, -2) + tc[:, None]  # (Mo, 4, 3)
+    inv_z = 1.0 / q[..., 2].clamp(min=1e-6)
+    uv_hat = torch.stack([cam.fx * q[..., 0] * inv_z + cam.cx, cam.fy * q[..., 1] * inv_z + cam.cy], -1)
+    r = uv_hat - problem.mobs_uv
+    zero = torch.zeros_like(inv_z)
+    J_proj = torch.stack(
+        [
+            torch.stack([cam.fx * inv_z, zero, -cam.fx * q[..., 0] * inv_z**2], -1),
+            torch.stack([zero, cam.fy * inv_z, -cam.fy * q[..., 1] * inv_z**2], -1),
+        ],
+        -2,
+    )  # (Mo, 4, 2, 3)
+    eye = torch.eye(3, dtype=q.dtype, device=q.device).expand(q.shape[:2] + (3, 3))
+    Jc = J_proj @ torch.cat([eye, -_hat(q)], -1)  # camera: dq = [I, -hat(q)] xi_c
+    Jm = J_proj @ (Rc[:, None] @ torch.cat([eye, -_hat(Xw)], -1))  # marker: dXw = [I, -hat(Xw)] xi_m
+    Mo = r.shape[0]
+    return r.reshape(Mo, 8), Jc.reshape(Mo, 8, 6), Jm.reshape(Mo, 8, 6)
+
+
+def _se3_generators(device) -> torch.Tensor:
+    """(6, 4, 4) se3 generators in [rho, phi] order (se3_exp's)."""
+    G = torch.zeros(6, 4, 4, dtype=torch.float32, device=device)
+    G[0, 0, 3] = G[1, 1, 3] = G[2, 2, 3] = 1.0
+    G[3, 1, 2], G[3, 2, 1] = -1.0, 1.0
+    G[4, 0, 2], G[4, 2, 0] = 1.0, -1.0
+    G[5, 0, 1], G[5, 1, 0] = -1.0, 1.0
+    return G
+
+
+def _planar_residual_jac(problem: BAProblem, mk_pose):
+    """Planar relative edge: E = T_ref^-1 T_other, residual 10 [E02, E12,
+    1 - E22, E23] (the other marker's z-axis along the reference's, in its
+    plane). -> r (Rp, 4), J_ref (Rp, 4, 6), J_other (Rp, 4, 6)."""
+    T1 = mk_pose[problem.plan_ref]
+    T2 = mk_pose[problem.plan_other]
+    A = torch.linalg.inv(T1)
+    E = A @ T2
+    r = 10.0 * torch.stack([E[:, 0, 2], E[:, 1, 2], 1.0 - E[:, 2, 2], E[:, 2, 3]], -1)
+    # left perturbations: E' ~= A (I + (xi2 - xi1)^) T2
+    dE = torch.einsum("rij,kjl,rlm->rkim", A, _se3_generators(mk_pose.device), T2)  # (Rp, 6, 4, 4)
+    J2 = 10.0 * torch.stack([dE[:, :, 0, 2], dE[:, :, 1, 2], -dE[:, :, 2, 2], dE[:, :, 2, 3]], -2)
+    return r, -J2, J2
+
+
+def _total_cost(problem: BAProblem, cam_pose, mk_pose, pt_pos, cam, active, robust: bool):
+    """LM acceptance cost: keypoint edges (Huber in stage 0, quadratic
+    after), plus the quadratic marker and planar terms."""
     c2, _ = _chi2_of(problem, cam_pose, pt_pos, cam)
     if robust:
         delta2 = _delta2(problem)
         rho = torch.where(c2 <= delta2, c2, 2.0 * torch.sqrt(delta2 * c2.clamp(min=1e-12)) - delta2)
     else:
         rho = c2
-    return torch.where(active, rho, 0.0).sum()
+    cost = torch.where(active, rho, 0.0).sum()
+    if problem.mk_pose is not None:
+        rm, _, _ = _marker_residual_jac(problem, cam_pose, mk_pose, cam)
+        cost = cost + ((rm * rm).sum(-1) * problem.mobs_valid.to(torch.float32) * problem.mobs_w).sum()
+        if problem.plan_ref is not None:
+            rp, _, _ = _planar_residual_jac(problem, mk_pose)
+            cost = cost + ((rp * rp).sum(-1) * problem.plan_valid.to(torch.float32) * problem.plan_w).sum()
+    return cost
+
+
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    return torch.nn.functional.one_hot(idx, n).to(torch.float32)
 
 
 def _pad_row(x: torch.Tensor) -> torch.Tensor:
@@ -146,8 +235,10 @@ def _pad_row(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
 
 
-def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, cam_pose, pt_pos, lam, cost_prev):
-    K = V = cam_pose.shape[0]
+def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, cam_pose, mk_pose, pt_pos, lam, cost_prev):
+    K = cam_pose.shape[0]
+    M = 0 if problem.mk_pose is None else mk_pose.shape[0]
+    V = K + M
     P = pt_pos.shape[0]
     O = problem.obs_cam.shape[0]
     dev = cam_pose.device
@@ -171,11 +262,13 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, cam_pose, pt
     Hpp = torch.einsum("pmij,pmik,pm->pjk", JpL, JpL, wL)
     bp = torch.einsum("pmij,pmi,pm->pj", JpL, rL, wL)
 
-    # per-camera blocks through the camera->observation table (a gather)
+    # per-camera blocks through the camera->observation table (a gather);
+    # the marker vertices' rows start at zero
     co = torch.where(problem.cam_obs >= 0, problem.cam_obs, O)
 
     def cam_reduce(contrib):
-        return _pad_row(contrib)[co].sum(1)
+        red = _pad_row(contrib)[co].sum(1)
+        return torch.cat([red, red.new_zeros((M,) + red.shape[1:])]) if M else red
 
     Hv = cam_reduce(torch.einsum("oij,oik,o->ojk", Jc, Jc, w))  # (V, 6, 6)
     bv = cam_reduce(torch.einsum("oij,oi,o->oj", Jc, r, w))  # (V, 6)
@@ -190,11 +283,32 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, cam_pose, pt
 
     # Schur complement as one matrix product of the camera-contracted tables
     Y_list = torch.einsum("pmij,pjk->pmik", A_list, Hpp_inv)  # (P, MO, 6, 3)
-    U = torch.nn.functional.one_hot(cam_list, V + 1).to(torch.float32)[..., :V]
+    U = _one_hot(cam_list, V + 1)[..., :V]
     GY = torch.einsum("pmc,pmij->cipj", U, Y_list).reshape(V * 6, P * 3)
     GA = torch.einsum("pmc,pmij->cipj", U, A_list).reshape(V * 6, P * 3)
     S = -(GY @ GA.T).reshape(V, 6, V, 6).permute(0, 2, 1, 3)
     b_corr = -cam_reduce(bcorr_o)
+
+    if M:
+        # marker corner edges: camera and marker blocks, and the binary
+        # camera<->marker blocks, summed through one-hot products
+        rm, Jcm, Jmm = _marker_residual_jac(problem, cam_pose, mk_pose, cam)
+        wm = problem.mobs_valid.to(torch.float32) * problem.mobs_w
+        Ec, Em = _one_hot(problem.mobs_cam, V), _one_hot(K + problem.mobs_mk, V)  # (Mo, V)
+        Hv = Hv + torch.einsum("ov,oij->vij", Ec, torch.einsum("oij,oik,o->ojk", Jcm, Jcm, wm)) \
+            + torch.einsum("ov,oij->vij", Em, torch.einsum("oij,oik,o->ojk", Jmm, Jmm, wm))
+        bv = bv + Ec.T @ torch.einsum("oij,oi,o->oj", Jcm, rm, wm) + Em.T @ torch.einsum("oij,oi,o->oj", Jmm, rm, wm)
+        cross = torch.einsum("oij,oik,o->ojk", Jcm, Jmm, wm)  # (Mo, 6, 6)
+        S = S + torch.einsum("oa,ob,oij->abij", Ec, Em, cross) + torch.einsum("oa,ob,oij->abji", Em, Ec, cross)
+        if problem.plan_ref is not None:
+            rp, J1, J2 = _planar_residual_jac(problem, mk_pose)
+            wp = problem.plan_valid.to(torch.float32) * problem.plan_w
+            E1, E2 = _one_hot(K + problem.plan_ref, V), _one_hot(K + problem.plan_other, V)
+            Hv = Hv + torch.einsum("ov,oij->vij", E1, torch.einsum("oij,oik,o->ojk", J1, J1, wp)) \
+                + torch.einsum("ov,oij->vij", E2, torch.einsum("oij,oik,o->ojk", J2, J2, wp))
+            bv = bv + E1.T @ torch.einsum("oij,oi,o->oj", J1, rp, wp) + E2.T @ torch.einsum("oij,oi,o->oj", J2, rp, wp)
+            crossp = torch.einsum("oij,oik,o->ojk", J1, J2, wp)
+            S = S + torch.einsum("oa,ob,oij->abij", E1, E2, crossp) + torch.einsum("oa,ob,oij->abji", E2, E1, crossp)
 
     HvD = Hv + lam * eye6 * torch.clamp(Hv.diagonal(dim1=-2, dim2=-1).sum(-1)[:, None, None] / 6.0, min=1.0)
     b_f = torch.where(free[:, None], bv + b_corr, 0.0)
@@ -217,31 +331,38 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, cam_pose, pt
     delta_p = torch.where(problem.pt_valid[:, None], delta_p, 0.0)
 
     new_cam = torch.where(free[:K, None, None], se3_exp(-delta_v[:K]) @ cam_pose, cam_pose)
+    new_mk = torch.where(free[K:, None, None], se3_exp(-delta_v[K:]) @ mk_pose, mk_pose) if M else mk_pose
     new_pt = pt_pos - delta_p
-    new_cost = _total_cost(problem, new_cam, new_pt, cam, active, robust)
+    new_cost = _total_cost(problem, new_cam, new_mk, new_pt, cam, active, robust)
     improved = new_cost < cost_prev
     cam_pose = torch.where(improved, new_cam, cam_pose)
+    mk_pose = torch.where(improved, new_mk, mk_pose) if M else mk_pose
     pt_pos = torch.where(improved, new_pt, pt_pos)
     cost = torch.where(improved, new_cost, cost_prev)
     lam = torch.where(improved, lam * 0.5, lam * 8.0).clamp(1e-7, 1e6)
-    return cam_pose, pt_pos, lam, cost
+    return cam_pose, mk_pose, pt_pos, lam, cost
 
 
 def _staged_lm(problem: BAProblem, cam: CameraParams, iters: int, stages: int):
-    """`stages` rounds of `iters` LM steps, outliers demoted between them.
-    -> (cam_pose, pt_pos, costs, obs_chi2, obs_bad); no host sync inside."""
+    """`stages` rounds of `iters` LM steps, the keypoint outliers demoted
+    between them. -> (cam_pose, mk_pose, pt_pos, costs, obs_chi2, obs_bad);
+    no host sync inside."""
+    has_mk = problem.mk_pose is not None
     free = problem.cam_valid & ~problem.cam_fixed
+    if has_mk:
+        free = torch.cat([free, problem.mk_valid & ~problem.mk_fixed])
     cam_pose, pt_pos = problem.cam_pose, problem.pt_pos
+    mk_pose = problem.mk_pose if has_mk else None
     active = problem.obs_valid
     all_costs = []
     for stage in range(stages):
         robust = stage == 0
         w_info = active.to(torch.float32) / problem.obs_sigma2.clamp(min=1e-9)
-        cost = _total_cost(problem, cam_pose, pt_pos, cam, active, robust)
+        cost = _total_cost(problem, cam_pose, mk_pose, pt_pos, cam, active, robust)
         lam = torch.tensor(1e-4, dtype=torch.float32, device=cam_pose.device)
         for _ in range(iters):
-            cam_pose, pt_pos, lam, cost = _lm_step(
-                problem, cam, free, w_info, active, robust, cam_pose, pt_pos, lam, cost
+            cam_pose, mk_pose, pt_pos, lam, cost = _lm_step(
+                problem, cam, free, w_info, active, robust, cam_pose, mk_pose, pt_pos, lam, cost
             )
             all_costs.append(cost)
         if stage < stages - 1:
@@ -249,19 +370,22 @@ def _staged_lm(problem: BAProblem, cam: CameraParams, iters: int, stages: int):
             active = problem.obs_valid & (c2_s <= _delta2(problem)) & (q_s[:, 2] > 0)
     c2, q = _chi2_of(problem, cam_pose, pt_pos, cam)
     bad = problem.obs_valid & ((c2 > _delta2(problem)) | (q[:, 2] <= 0))
-    return cam_pose, pt_pos, torch.stack(all_costs), c2, bad
+    return cam_pose, mk_pose, pt_pos, torch.stack(all_costs), c2, bad
 
 
 def ba_solve(problem: BAProblem, cam: CameraParams, iters: int = 20, stages: int = 2, solver: str = "auto") -> BAResult:
-    """LM with point marginalization: the reference's dense Schur solve."""
-    V = problem.cam_pose.shape[0]
-    if solver == "cg" or (solver == "auto" and V >= 128):
+    """LM with point marginalization and free marker vertices: the
+    reference's dense Schur solve (its route for marker-free problems of
+    fewer than 128 vertex slots and marker problems of fewer than 512)."""
+    has_mk = problem.mk_pose is not None
+    V = problem.cam_pose.shape[0] + (problem.mk_pose.shape[0] if has_mk else 0)
+    if solver == "cg" or (solver == "auto" and (V >= 512 or (V >= 128 and not has_mk))):
         raise NotImplementedError(
-            f"BA over {V} keyframe slots takes the reference's point-major or CG solver, which is "
+            f"BA over {V} vertex slots takes the reference's point-major or CG solver, which is "
             "not ported yet (ROADMAP.md, Queue 1 item 6: global BA at scale)"
         )
-    cam_pose, pt_pos, costs, c2, bad = _staged_lm(problem, cam, iters, stages)
-    return BAResult(cam_pose=cam_pose, pt_pos=pt_pos, obs_chi2=c2, obs_bad=bad, cost_history=costs)
+    cam_pose, mk_pose, pt_pos, costs, c2, bad = _staged_lm(problem, cam, iters, stages)
+    return BAResult(cam_pose=cam_pose, pt_pos=pt_pos, obs_chi2=c2, obs_bad=bad, cost_history=costs, mk_pose=mk_pose)
 
 
 # ----------------------------------------------------------------------
@@ -298,15 +422,16 @@ def build_ba_problem(
     fix_first: bool = True,
     max_obs_per_point: int = 16,
     min_obs: int = 2,
-) -> tuple[BAProblem, np.ndarray, np.ndarray]:
+) -> tuple[BAProblem, np.ndarray, np.ndarray, np.ndarray]:
     """Flatten a Map (or a keyframe window) into a BAProblem.
 
     used_kfs: keyframe slots to optimize (None = all active); fixed_kfs:
-    slots held fixed (the window's boundary). Returns (problem, kf_slots,
-    pt_slots), the slot arrays mapping problem indices to the Map arenas.
+    slots held fixed (the window's boundary). With `detectMarkers`, the
+    markers with a map pose that window keyframes observe become vertices
+    (held fixed when keyframes outside the window observe them too).
+    Returns (problem, kf_slots, pt_slots, mk_slots), the slot arrays
+    mapping problem indices to the Map arenas.
     """
-    if world_map.params.detectMarkers:
-        raise NotImplementedError("marker vertices in BA are not ported yet (ROADMAP.md, Queue 1 item 3: markers)")
     st = world_map.state
     dev = world_map.device
     kf_active = world_map.h("kf_active")
@@ -368,6 +493,12 @@ def build_ba_problem(
     def t(a, dtype):
         return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
+    mk_slots, mk_fields = np.zeros(0, np.int32), {}
+    if world_map.params.detectMarkers:
+        mk_slots, mk_fields = _marker_fields(world_map, all_kfs, kf_oct[obs_cam, obs_kpt], obs_cam, obs_depth)
+        mk_fields = {k: t(v, torch.int64 if v.dtype == np.int32 else torch.bool if v.dtype == bool else torch.float32)
+                     for k, v in mk_fields.items()}
+
     problem = BAProblem(
         cam_pose=t(cam_pose, torch.float32),
         cam_fixed=t(cam_fixed, torch.bool),
@@ -383,16 +514,102 @@ def build_ba_problem(
         pt_obs=t(pt_obs, torch.int64),
         bf=cam.bf,
         cam_obs=t(_build_cam_obs(obs_cam, Kb), torch.int64),
+        **mk_fields,
     )
-    return problem, all_kfs, pt_slots
+    return problem, all_kfs, pt_slots, mk_slots
+
+
+def _bucket(n: int, quantum: int) -> int:
+    return max(quantum, -(-n // quantum) * quantum)
+
+
+def _marker_fields(world_map: Map, all_kfs: np.ndarray, obs_oct: np.ndarray, obs_cam: np.ndarray,
+                   obs_depth: np.ndarray) -> tuple[np.ndarray, dict]:
+    """The marker vertices and edges of a BA problem over keyframes all_kfs
+    (host arrays, padded to their buckets) -> (mk_slots, fields). Each
+    frame's corner edges weigh markersOptWeight (scaled down below
+    minMarkersForMaxWeight markers) of its keypoint information mass; the
+    planar edges (inPlaneMarkers) 0.33 of the total mass, against the most
+    observed marker."""
+    params = world_map.params
+    kf_active, mk_pose_arr, mk_size, mk_pose_valid, kf_mk_slot, kf_mk_corners = world_map.h(
+        "kf_active", "mk_pose", "mk_size", "mk_pose_valid", "kf_mk_slot", "kf_mk_corners")
+    # vertices: the markers with a map pose that a window keyframe observes
+    seen: dict[int, list[tuple[int, int]]] = {}
+    for ci, s in enumerate(all_kfs):
+        for j in range(kf_mk_slot.shape[1]):
+            slot = int(kf_mk_slot[s, j])
+            if slot >= 0 and mk_pose_valid[slot]:
+                seen.setdefault(slot, []).append((ci, j))
+    mk_slots = np.asarray(sorted(seen), np.int32)
+    if len(mk_slots) == 0:
+        return mk_slots, {}
+    mk_vidx = {int(s): i for i, s in enumerate(mk_slots)}
+    # markers that active keyframes outside the window also observe are
+    # constrained by data the problem does not hold: fixed
+    in_window = set(int(s) for s in all_kfs)
+    fixed_mk = set()
+    for s in np.nonzero(kf_active)[0]:
+        if int(s) not in in_window:
+            fixed_mk.update(int(v) for v in kf_mk_slot[s] if int(v) in mk_vidx)
+    # each frame's keypoint information mass (mono edges 2 / sf^oct, stereo 3)
+    sf = params.scaleFactor
+    kpw = np.zeros(len(all_kfs), np.float64)
+    np.add.at(kpw, obs_cam, np.where(obs_depth > 0, 3.0, 2.0) * sf ** (-obs_oct.astype(np.float64)))
+    n_mk_frame = np.zeros(len(all_kfs), np.int32)
+    for obs in seen.values():
+        for ci, _ in obs:
+            n_mk_frame[ci] += 1
+    fmw = np.ones(len(all_kfs), np.float64)
+    for ci in range(len(all_kfs)):
+        if kpw[ci] > 40 and n_mk_frame[ci] > 0:
+            perct = params.markersOptWeight * min(1.0, n_mk_frame[ci] / max(params.minMarkersForMaxWeight, 1))
+            fmw[ci] = perct * kpw[ci] / (n_mk_frame[ci] * 8.0)
+    mobs = [(ci, mk_vidx[slot], kf_mk_corners[all_kfs[ci], j], fmw[ci]) for slot, obs in seen.items() for ci, j in obs]
+
+    Mb, Mob, n_mo = _bucket(len(mk_slots), M_BUCKET), _bucket(len(mobs), MO_BUCKET), len(mobs)
+    f = dict(
+        mk_pose=np.tile(np.eye(4, dtype=np.float32), (Mb, 1, 1)),
+        mk_fixed=np.ones(Mb, bool),
+        mk_valid=np.arange(Mb) < len(mk_slots),
+        mk_obj=np.zeros((Mb, 4, 3), np.float32),
+        mobs_cam=np.zeros(Mob, np.int32),
+        mobs_mk=np.zeros(Mob, np.int32),
+        mobs_uv=np.zeros((Mob, 4, 2), np.float32),
+        mobs_w=np.zeros(Mob, np.float32),
+        mobs_valid=np.arange(Mob) < n_mo,
+    )
+    f["mk_pose"][: len(mk_slots)] = mk_pose_arr[mk_slots]
+    f["mk_fixed"][: len(mk_slots)] = [int(s) in fixed_mk for s in mk_slots]
+    for i, s in enumerate(mk_slots):
+        f["mk_obj"][i] = marker_object_points(np.float32(mk_size[s])).numpy()
+    f["mobs_cam"][:n_mo] = [o[0] for o in mobs]
+    f["mobs_mk"][:n_mo] = [o[1] for o in mobs]
+    f["mobs_uv"][:n_mo] = np.stack([o[2] for o in mobs])
+    f["mobs_w"][:n_mo] = [o[3] for o in mobs]
+    if params.inPlaneMarkers and len(mk_slots) >= 2:
+        n_obs_per_v = np.zeros(len(mk_slots), np.int32)
+        for slot, obs in seen.items():
+            n_obs_per_v[mk_vidx[slot]] = len(obs)
+        ref_v = int(np.argmax(n_obs_per_v))
+        others = [v for v in range(len(mk_slots)) if v != ref_v]
+        total_w = float(np.sum(f["mobs_w"][:n_mo]) * 8.0) + float(np.sum(kpw))
+        Rb = _bucket(len(others), PLAN_BUCKET)
+        f.update(plan_ref=np.zeros(Rb, np.int32), plan_other=np.zeros(Rb, np.int32),
+                 plan_w=np.zeros(Rb, np.float32), plan_valid=np.arange(Rb) < len(others))
+        f["plan_ref"][: len(others)] = ref_v
+        f["plan_other"][: len(others)] = others
+        f["plan_w"][: len(others)] = 0.33 * total_w / (4.0 * len(others))
+    return mk_slots, f
 
 
 def apply_ba_result(
     world_map: Map, result: BAResult, kf_slots: np.ndarray, pt_slots: np.ndarray,
-    problem: BAProblem, remove_bad: bool = True,
+    problem: BAProblem, remove_bad: bool = True, mk_slots: np.ndarray | None = None,
 ) -> int:
-    """Write the optimized poses and points back into the map and drop the
-    bad associations. Returns the number of associations removed."""
+    """Write the optimized poses, points and free markers back into the map
+    and drop the bad associations. Returns the number of associations
+    removed."""
     st = world_map.state
     dev = world_map.device
     kf_idx = torch.from_numpy(np.asarray(kf_slots, np.int64)).to(dev)
@@ -401,7 +618,16 @@ def apply_ba_result(
     kf_pose[kf_idx] = result.cam_pose[: len(kf_slots)]
     pt_pos = st.pt_pos.clone()
     pt_pos[pt_idx] = result.pt_pos[: len(pt_slots)]
-    world_map.state = st.replace(kf_pose=kf_pose, pt_pos=pt_pos)
+    st = st.replace(kf_pose=kf_pose, pt_pos=pt_pos)
+    if mk_slots is not None and len(mk_slots) and result.mk_pose is not None:
+        # the free marker vertices only (no transfer: a masked write)
+        n = len(mk_slots)
+        free = (problem.mk_valid & ~problem.mk_fixed)[:n]
+        mk_idx = torch.from_numpy(np.asarray(mk_slots, np.int64)).to(dev)
+        mk_pose = st.mk_pose.clone()
+        mk_pose[mk_idx] = torch.where(free[:, None, None], result.mk_pose[:n], mk_pose[mk_idx])
+        st = st.replace(mk_pose=mk_pose)
+    world_map.state = st
     n_bad = 0
     if remove_bad:
         bad, obs_cam_h, obs_pt_h = fetch_to_host(result.obs_bad, problem.obs_cam, problem.obs_pt)
@@ -430,11 +656,11 @@ def global_bundle_adjustment(world_map: Map, cam: CameraParams, n_iters: int = 5
     number of bad associations removed."""
     if world_map.n_keyframes < 2:
         return 0
-    problem, kf_slots, pt_slots = build_ba_problem(world_map, cam, fix_first=fix_first)
+    problem, kf_slots, pt_slots, mk_slots = build_ba_problem(world_map, cam, fix_first=fix_first)
     if len(pt_slots) == 0:
         return 0
     result = ba_solve(problem, cam, iters=n_iters, stages=2)
-    return apply_ba_result(world_map, result, kf_slots, pt_slots, problem)
+    return apply_ba_result(world_map, result, kf_slots, pt_slots, problem, mk_slots=mk_slots)
 
 
 def local_bundle_adjustment(
@@ -453,11 +679,11 @@ def local_bundle_adjustment(
         return 0
     window_set = set(window)
     boundary = [int(s) for s in np.nonzero(covis[window].sum(0) > 0)[0] if int(s) not in window_set]
-    problem, kf_slots, pt_slots = build_ba_problem(
+    problem, kf_slots, pt_slots, mk_slots = build_ba_problem(
         world_map, cam, used_kfs=np.asarray(window), fixed_kfs=np.asarray(boundary, int),
         fix_first=len(boundary) == 0,
     )
     if len(pt_slots) == 0:
         return 0
     result = ba_solve(problem, cam, iters=n_iters, stages=2)
-    return apply_ba_result(world_map, result, kf_slots, pt_slots, problem)
+    return apply_ba_result(world_map, result, kf_slots, pt_slots, problem, mk_slots=mk_slots)

@@ -1,14 +1,18 @@
-"""Map bootstrapping from two views.
+"""Map bootstrapping from two views or from markers.
 
-Port of the keypoint path of `ucoslam_tpu/slam/initializer.py`: match the
-reference frame against the current one, run the F and H hypotheses,
-recover the motion, triangulate, and normalize the scale to median scene
+Port of `ucoslam_tpu/slam/initializer.py`. The keypoint path matches the
+reference frame against the current one, runs the F and H hypotheses,
+recovers the motion, triangulates, and normalizes the scale to median scene
 depth 1. The hypotheses' rows are drawn on the host from a numpy generator
 seeded 0x1717 (the reference's PRNG key), uniformly among the valid
 matches, and handed to `estimate_two_view`, so the card and the CPU draw
 the same hypotheses. `reseed_two_view` seeds a fresh map segment the same
-way after a long tracking loss. Depth and marker initialization raise
-NotImplementedError, each naming its ROADMAP item.
+way after a long tracking loss. The marker path (`initialize_from_markers`)
+seeds a metric map from one unambiguous marker view, or from a marker seen
+in the reference and the current frame; `marker_metric_scale` gives a
+keypoint init its metric baseline from a marker seen in both frames.
+Initialization from depth raises NotImplementedError, naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from ucoslam_tpu_torch.geometry.twoview import estimate_two_view, reconstruct_tw
 from ucoslam_tpu_torch.mapping.frame import Frame, fetch_to_host
 from ucoslam_tpu_torch.mapping.map import Map
 from ucoslam_tpu_torch.matching.matcher import match_frames
+from ucoslam_tpu_torch.slam.markermap import _reproj_corner_err, record_marker_observations, resolve_marker_slots
 
 #: F/H hypotheses drawn per attempt (the reference's default n_hypotheses)
 N_HYPOTHESES = 256
@@ -59,9 +64,96 @@ class MapInitializer:
         )
 
     def initialize_from_markers(self, frame: Frame, world_map: Map):
-        raise NotImplementedError(
-            "initialization from markers is not ported yet (ROADMAP.md, Queue 1 item 3: markers)"
-        )
+        """Marker bootstrap with real scale: one frame when a marker is
+        unambiguous (err_ratio > aruco_minerrratio_valid) and
+        aruco_allowOneFrameInitialization, else two frames, the IPPE
+        ambiguity resolved across the reference and the current view.
+        -> (ok, cur_frame); on success the map holds the keyframe(s) and
+        the marker's pose."""
+        p = self.params
+        mk = frame.markers
+        if not mk.valid.any():
+            return False, frame
+        dev = frame.und_xy.device
+        eye = torch.eye(4, dtype=torch.float32, device=dev)
+        size = p.aruco_markerSize
+
+        if p.aruco_allowOneFrameInitialization:
+            good = np.nonzero(mk.valid & (mk.err_ratio > p.aruco_minerrratio_valid))[0]
+            if len(good):
+                i = int(good[0])
+                cur = frame.replace(pose_f2g=eye)
+                slots = resolve_marker_slots(world_map, mk)
+                world_map.set_markers([slots[i]], mk_pose=mk.pose1[i][None], mk_pose_valid=[True])
+                record_marker_observations(world_map, world_map.add_keyframe(cur), mk, slots)
+                return True, cur
+
+        if self.ref_frame is None:
+            return False, frame
+        rmk = self.ref_frame.markers
+        if not rmk.valid.any():
+            return False, frame
+        shared = [
+            (int(np.nonzero(rmk.id == m)[0][0]), int(np.nonzero(mk.id == m)[0][0]))
+            for m in set(rmk.id[rmk.valid]) & set(mk.id[mk.valid])
+        ]
+        if not shared:
+            return False, frame
+        ri, ci = shared[0]
+        best, best_err = None, np.inf
+        for g2m in (rmk.pose1[ri], rmk.pose2[ri]):  # the reference camera is the global frame
+            for pose_c in (mk.pose1[ci], mk.pose2[ci]):
+                T_cur = pose_c @ np.linalg.inv(g2m)
+                err = _reproj_corner_err(g2m, np.eye(4, dtype=np.float32), rmk.und_corners[ri], size, self.cam) \
+                    + _reproj_corner_err(g2m, T_cur, mk.und_corners[ci], size, self.cam)
+                if err < best_err:
+                    best, best_err = (g2m, T_cur), err
+        if best is None or best_err > 4.0:
+            return False, frame
+        # a baseline between the two views, or an unambiguous view
+        g2m, T_cur = best
+        unamb = mk.err_ratio[ci] > p.aruco_minerrratio_valid or rmk.err_ratio[ri] > p.aruco_minerrratio_valid
+        if float(np.linalg.norm(T_cur[:3, 3])) < p.minBaseLine * 0.5 and not unamb:
+            return False, frame
+        ref = self.ref_frame.replace(pose_f2g=eye)
+        cur = frame.replace(pose_f2g=torch.from_numpy(T_cur.astype(np.float32)).to(dev))
+        slots_r = resolve_marker_slots(world_map, rmk)
+        world_map.set_markers([slots_r[ri]], mk_pose=g2m[None].astype(np.float32), mk_pose_valid=[True])
+        record_marker_observations(world_map, world_map.add_keyframe(ref), rmk, slots_r)
+        slots_c = resolve_marker_slots(world_map, mk)
+        record_marker_observations(world_map, world_map.add_keyframe(cur), mk, slots_c)
+        return True, cur
+
+    def marker_metric_scale(self, ref_markers, cur_markers) -> tuple | None:
+        """Metric baseline of a keypoint two-view init from a marker seen in
+        both frames: its IPPE poses give the metric motion between them.
+        -> (metric_baseline, ref marker index, g2m) or None."""
+        if not (ref_markers.valid.any() and cur_markers.valid.any()):
+            return None
+        rids, cids = ref_markers.id, cur_markers.id
+        shared = [
+            (int(np.nonzero(rids == m)[0][0]), int(np.nonzero(cids == m)[0][0]))
+            for m in set(rids[ref_markers.valid]) & set(cids[cur_markers.valid])
+        ]
+        if not shared:
+            return None
+        ri, ci = shared[0]
+        size = self.params.aruco_markerSize
+        best, best_err = None, np.inf
+        for g2m in (ref_markers.pose1[ri], ref_markers.pose2[ri]):
+            for pose_c in (cur_markers.pose1[ci], cur_markers.pose2[ci]):
+                T_cur = pose_c @ np.linalg.inv(g2m)
+                err = _reproj_corner_err(g2m, np.eye(4, dtype=np.float32), ref_markers.und_corners[ri], size,
+                                         self.cam) \
+                    + _reproj_corner_err(g2m, T_cur, cur_markers.und_corners[ci], size, self.cam)
+                if err < best_err:
+                    best, best_err = (g2m, T_cur), err
+        # the sum of two per-view RMS errors must admit the detector's
+        # corner noise (1-4 px on rendered markers)
+        if best is None or best_err > 10.0:
+            return None
+        g2m, T_cur = best
+        return float(np.linalg.norm(T_cur[:3, 3])), ri, g2m.astype(np.float32)
 
     def reseed_two_view(self, frame: Frame, world_map: Map, anchor_pose: np.ndarray, baseline_hint: float,
                         creation_kf: int):

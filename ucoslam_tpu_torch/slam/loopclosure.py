@@ -1,4 +1,4 @@
-"""Loop detection and map correction from keypoints.
+"""Loop detection and map correction.
 
 Port of `ucoslam_tpu/slam/loopclosure.py`:
 
@@ -6,6 +6,9 @@ Port of `ucoslam_tpu/slam/loopclosure.py`:
   keyframe's covisible neighbours and the keyframes within 10 frames of it,
   verified in one batch (`matching.kfmatch`: one batched launch of kernel B2
   for their PnP refines) -> the expected pose of the current keyframe;
+- `detect_from_markers`: a marker with a map pose seen again at least 15
+  frames after any other keyframe saw it -> the expected pose from the
+  markers (`best_pose_from_valid_markers`);
 - `correct_map`: the essential graph plus the loop edge, a Sim3 pose-graph
   relaxation (scale fixed for stereo/RGB-D), every point moved with its
   reference keyframe, a roll-back if the global reprojection chi2 grows too
@@ -13,7 +16,7 @@ Port of `ucoslam_tpu/slam/loopclosure.py`:
   `fuse_duplicates_into_kf`).
 
 The RANSAC rows come from the detector's numpy Generator, seeded with the
-reference's PRNG constant. Marker loops are item 3 of the ROADMAP.
+reference's PRNG constant.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from ucoslam_tpu_torch.mapping.map import Map
 from ucoslam_tpu_torch.matching.kfmatch import match_keyframe_points_pnp_batch
 from ucoslam_tpu_torch.optim.pnp import draw_rows
 from ucoslam_tpu_torch.optim.posegraph import PoseGraphProblem, pose_graph_solve, sim3_to_se3
+from ucoslam_tpu_torch.slam.markermap import best_pose_from_valid_markers
 
 
 @dataclass
@@ -39,7 +43,7 @@ class LoopClosureInfo:
     cur_kf: int
     matched_kf: int
     expected_pose: np.ndarray | None  # corrected pose_f2g of cur_kf
-    n_matches: int = 0  # geometric support (verified inliers)
+    n_matches: int = 0  # geometric support (verified inliers / marker corners)
 
 
 class LoopDetector:
@@ -80,7 +84,33 @@ class LoopDetector:
         return LoopClosureInfo(True, kf_slot, cand, cm.pose_f2g, cm.n_inliers)
 
     def detect_from_markers(self, world_map: Map, kf_slot: int, frame: Frame, min_gap: int = 15) -> LoopClosureInfo:
-        raise NotImplementedError("marker loop detection is not ported yet (ROADMAP.md, Queue 1 item 3: markers)")
+        """A marker with a map pose, last seen by another keyframe at least
+        min_gap frames ago -> the loop against the latest such keyframe, its
+        expected pose from the frame's markers."""
+        mk = frame.markers
+        if not mk.valid.any():
+            return LoopClosureInfo(False, kf_slot, -1, None)
+        kf_active, kf_mk_slot, fseqs, mk_ids_map, mk_pose_valid = world_map.h(
+            "kf_active", "kf_mk_slot", "kf_fseq", "mk_id", "mk_pose_valid")
+        cur_seq = int(fseqs[kf_slot])
+        loop_marker, matched_kf = None, -1
+        for i in np.nonzero(mk.valid)[0]:
+            slot = np.nonzero((mk_ids_map == int(mk.id[i])) & mk_pose_valid)[0]
+            if not len(slot):
+                continue
+            observers = [int(k) for k in np.nonzero(kf_active)[0] if (kf_mk_slot[k] == slot[0]).any() and k != kf_slot]
+            if not observers:
+                continue
+            if cur_seq - max(int(fseqs[k]) for k in observers) >= min_gap:
+                loop_marker = int(slot[0])
+                matched_kf = max(observers, key=lambda k: int(fseqs[k]))
+        if loop_marker is None:
+            return LoopClosureInfo(False, kf_slot, -1, None)
+        pose = best_pose_from_valid_markers(world_map, mk, self.cam)
+        if pose is None:
+            return LoopClosureInfo(False, kf_slot, -1, None)
+        # geometric support: 4 corner correspondences per observed marker
+        return LoopClosureInfo(True, kf_slot, matched_kf, pose, 4 * int(mk.valid.sum()))
 
     def correct_map(self, world_map: Map, info: LoopClosureInfo, fix_scale: bool = False,
                     min_covis_weight: int = 15) -> bool:

@@ -1,14 +1,18 @@
 """Local mapping: keyframe insertion, new-point creation, fusion, culling.
 
 Port of the sequential path of `ucoslam_tpu/slam/mapmanager.py`: per new
-keyframe, capacity growth, the stale-id drop, insertion, stereo points
+keyframe, capacity growth, the stale-id drop, insertion, the keyframe's
+marker observations (with the one-time marker rescale of a map that is not
+metric yet, and the poses of markers that have none), stereo points
 (nothing for mono depth), epipolar matching and triangulation against up to
-six covisible neighbours (one batch over a leading axis), duplicate fusion
+six covisible neighbours (one batch over a leading axis; the most recent
+keyframe after a marker-only init, which shares no points), duplicate fusion
 (kernel B1 at a 3 px radius over the whole point arena), recent-point
-culling, local BA, the point statistics, keyframe culling, the keyframe
-database and keypoint loop closure (detection, Sim3 correction with seam
-fusion, then a global BA). The asynchronous mapping worker and the marker
-branch raise NotImplementedError, each naming its ROADMAP item.
+culling, local BA (marker vertices included), the point statistics,
+keyframe culling, the keyframe database and loop closure (markers first,
+then keypoints; a Sim3 correction with seam fusion, then a global BA). The
+asynchronous mapping worker raises NotImplementedError, naming its ROADMAP
+item.
 """
 
 from __future__ import annotations
@@ -27,6 +31,12 @@ from ucoslam_tpu_torch.matching.matcher import match_frames_epipolar
 from ucoslam_tpu_torch.matching.projection import match_points_to_frame
 from ucoslam_tpu_torch.optim import ba
 from ucoslam_tpu_torch.slam.loopclosure import LoopDetector
+from ucoslam_tpu_torch.slam.markermap import (
+    estimate_scale_from_pending_markers,
+    record_marker_observations,
+    resolve_marker_slots,
+    update_marker_poses,
+)
 
 #: covisible neighbours triangulated against per keyframe
 EPI_MAX_NB = 6
@@ -121,9 +131,10 @@ class MapManager:
         self.params = params
         self.cam = cam
         self.kf_counter = 0
-        # True once the map is known metric (marker/depth init): metric maps
-        # are never rescaled again
+        # True once the map is known metric (marker/depth init, or the one
+        # marker rescale applied): metric maps are never rescaled again
         self.metric_locked = False
+        self.last_scale_correction = 1.0  # set when a marker rescale moved the map
         self.kfdb = kfdb if kfdb is not None else KeyFrameDataBase(params.maxKeyFrames, device=device)
         self.loop_detector = LoopDetector(params, cam, self.kfdb)
         self.n_insertions = 0  # new_keyframe calls (each launches B1 once, to fuse)
@@ -139,8 +150,6 @@ class MapManager:
         """Insert `frame` as a keyframe and grow the map around it. host_*:
         host copies of the frame's ids/depth/valid the tracker fetched."""
         p = self.params
-        if p.detectMarkers:
-            raise NotImplementedError("markers in mapping are not ported yet (ROADMAP.md, Queue 1 item 3: markers)")
         self.n_insertions += 1
         if world_map.keyframes.n_active >= world_map.state.K - 1:
             self.kfdb.grow(world_map.grow_keyframes())
@@ -156,6 +165,8 @@ class MapManager:
                 frame = frame.replace(ids=torch.from_numpy(ids).to(world_map.device))
         kf_slot = world_map.add_keyframe(frame)
         self.kf_counter += 1
+        if p.detectMarkers and frame.markers.valid.any():
+            self._add_marker_observations(world_map, kf_slot, frame)
         self._create_stereo_points(world_map, kf_slot, frame, host_depth=host_depth, host_valid=host_valid, host_ids=ids)
         self._create_epipolar_points(world_map, kf_slot)
         self._fuse_duplicates(world_map, kf_slot)
@@ -169,13 +180,34 @@ class MapManager:
         self._detect_and_close_loop(world_map, kf_slot, frame)
         return kf_slot
 
+    def _add_marker_observations(self, world_map: Map, kf_slot: int, frame: Frame) -> None:
+        """Record the keyframe's markers. A keypoint-initialized map (scale
+        unknown) keeps its markers pose-less until one marker-based rescale
+        makes it metric: a metric marker pose in a map of another scale would
+        pull every BA edge it touches."""
+        p = self.params
+        slots = resolve_marker_slots(world_map, frame.markers)
+        record_marker_observations(world_map, kf_slot, frame.markers, slots)
+        if not self.metric_locked:
+            s = estimate_scale_from_pending_markers(world_map, self.cam, p)
+            if s is not None and 0.05 < s < 20.0:
+                if abs(s - 1.0) > 0.02:
+                    world_map.scale(s)
+                    self.last_scale_correction = s
+                self.metric_locked = True
+        if self.metric_locked:
+            update_marker_poses(world_map, self.cam, p)
+
     def _detect_and_close_loop(self, world_map: Map, kf_slot: int, frame: Frame) -> None:
-        """Keypoint loop detection; an accepted correction is followed by a
-        global BA (the marker detector is item 3 of the ROADMAP)."""
-        if not self.params.detectKeyPoints:
-            return
-        info = self.loop_detector.detect_from_keypoints(world_map, kf_slot, frame)
-        if not info.found:
+        """Loop detection, from markers first, then from keypoints; an
+        accepted correction is followed by a global BA."""
+        p = self.params
+        info = None
+        if p.detectMarkers:
+            info = self.loop_detector.detect_from_markers(world_map, kf_slot, frame)
+        if (info is None or not info.found) and p.detectKeyPoints:
+            info = self.loop_detector.detect_from_keypoints(world_map, kf_slot, frame)
+        if info is None or not info.found:
             return
         fix_scale = bool((world_map.state.kf_depth > 0).any())
         if self.loop_detector.correct_map(world_map, info, fix_scale=fix_scale):

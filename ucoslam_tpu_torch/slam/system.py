@@ -5,16 +5,20 @@ per frame, initialize from two views while the map is empty, else track
 with the motion-model prior, decide on a keyframe and hand it to the
 MapManager inline; LOCALIZATION mode tracks without mapping. A lost frame
 relocalizes (BoW candidates through the keyframe database, or brute force
-for a dummy one); after `reseedAfterLostFrames` lost SLAM frames a fresh map
-segment is re-seeded from two views at the dead-reckoned pose; after a loop
-correction the tracker adopts the corrected keyframe pose. Not ported, each
-raising NotImplementedError that names its ROADMAP item: markers (and the
-marker relocalization fallback), initialization from depth, and the async
-mapper.
+for a dummy one), and when that fails the frame's markers with a map pose
+give a pose to track from, or the pose itself; after
+`reseedAfterLostFrames` lost SLAM frames a fresh map segment is re-seeded
+from two views at the dead-reckoned pose; after a loop correction the
+tracker adopts the corrected keyframe pose, and after a marker rescale of
+the map it rescales its own motion model. Markers initialize the map (one
+unambiguous frame, or two frames), or make a keypoint init metric (the
+hybrid init). Not ported, each raising NotImplementedError that names its
+ROADMAP item: initialization from depth, and the async mapper.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 
 import numpy as np
@@ -27,9 +31,8 @@ from ucoslam_tpu_torch.mapping.kfdatabase import KeyFrameDataBase
 from ucoslam_tpu_torch.mapping.map import Map
 from ucoslam_tpu_torch.slam.initializer import MapInitializer
 from ucoslam_tpu_torch.slam.mapmanager import MapManager
+from ucoslam_tpu_torch.slam.markermap import best_pose_from_valid_markers, record_marker_observations, resolve_marker_slots
 from ucoslam_tpu_torch.slam.tracker import TrackResult, Tracker
-
-NOT_PORTED_MARKERS = "marker detection is not ported yet (ROADMAP.md, Queue 1 item 3: markers)"
 
 
 def disable_tf32() -> None:
@@ -44,8 +47,6 @@ class System:
                  kfdb: KeyFrameDataBase | None = None, device="cuda"):
         disable_tf32()
         params = params.effective()
-        if params.detectMarkers:
-            raise NotImplementedError(NOT_PORTED_MARKERS)
         self.params = params
         self.cam = cam
         self.device = torch.device(device)
@@ -69,6 +70,7 @@ class System:
         self._reseed_ref_fseq = 0
         self._dead_pose = None  # motion-model extrapolation while lost
         self._init_failures = 0
+        self.n_marker_poses = 0  # lost frames the markers gave a pose to
         self.stats_log = []
         if not params.runSequential:
             self.manager.start_async(self.map)
@@ -104,6 +106,21 @@ class System:
         else:
             res = TrackResult(False, None, frame, 0, 0, np.zeros(0, np.int32))
 
+        if not res.ok and self.params.detectMarkers and (
+            self.params.reLocalizationWithMarkers or self.state == TrackingState.TRACKING
+        ):
+            # the pose from the observed markers with a map pose, then a
+            # keypoint track from it; the marker pose itself if that fails
+            mk_pose = best_pose_from_valid_markers(self.map, frame.markers, self.cam)
+            if mk_pose is not None:
+                self.n_marker_poses += 1
+                retry = self.tracker.track(self.map, frame, torch.from_numpy(mk_pose).to(self.device))
+                if retry.ok:
+                    res = retry
+                else:
+                    pose_t = torch.from_numpy(mk_pose).to(self.device)
+                    res = dataclasses.replace(res, ok=True, pose_f2g=mk_pose, frame=frame.replace(pose_f2g=pose_t))
+
         if not res.ok:
             self.state = TrackingState.LOST
             self._lost_streak += 1
@@ -131,8 +148,7 @@ class System:
         # running max of tracked inliers since the last keyframe, after the decision
         self.last_kf_inliers = max(self.last_kf_inliers, res.n_inliers)
         if need_kf:
-            # (a metric rescale would move this pose too: only marker and
-            # depth maps are rescaled, neither ported)
+            self.manager.last_scale_correction = 1.0
             loops_before = self.manager.loop_closures
             kf_slot = self.manager.new_keyframe(
                 self.map, res.frame, host_ids=res.host_ids, host_depth=res.host_depth, host_valid=res.host_valid
@@ -144,6 +160,15 @@ class System:
                 self.pose = pose
                 self.prev_pose = None
                 self.velocity = np.eye(4, dtype=np.float32)
+            s = self.manager.last_scale_correction
+            if s != 1.0:
+                # the whole world, this frame's pose included, was rescaled
+                self.pose[:3, 3] *= s
+                if self.prev_pose is not None:
+                    self.prev_pose = self.prev_pose.copy()
+                    self.prev_pose[:3, 3] *= s
+                self.velocity = self.velocity.copy()
+                self.velocity[:3, 3] *= s
             self.frames_since_kf = 0
             self.last_kf_inliers = max(res.n_inliers, 1)
             self._last_kf_rot = pose[:3, :3].copy()
@@ -199,7 +224,17 @@ class System:
         return pose
 
     def _try_initialize(self, frame: Frame) -> np.ndarray | None:
-        if self.params.forceInitializationFromMarkers:
+        p = self.params
+        has_markers = p.detectMarkers and bool(frame.markers.valid.any())
+        # a marker init when keypoints are poor, one frame is allowed, or
+        # markers are forced
+        if has_markers and (p.forceInitializationFromMarkers or p.aruco_allowOneFrameInitialization
+                            or not bool(frame.valid.any())):
+            ok, cur = self.initializer.initialize_from_markers(frame, self.map)
+            if ok:
+                self.manager.metric_locked = True  # a marker init is metric
+                return self._finish_init(frame, cur)
+        if p.forceInitializationFromMarkers:
             self.initializer.set_reference_frame(frame)
             self._log(frame, None, 0)
             return None
@@ -209,16 +244,51 @@ class System:
             self.initializer.set_reference_frame(frame)
             self._log(frame, None, 0)
             return None
+        ref_markers = self.initializer.ref_frame.markers
         status, cur = self.initializer.initialize_two_view(frame, self.map)
         if status != "ok":
             self._init_failures += 1
+            # markers alone only after the keypoint path failed repeatedly: a
+            # zero-baseline marker init would beat a hybrid init a frame later
+            if has_markers and self._init_failures > 5:
+                ok, mcur = self.initializer.initialize_from_markers(frame, self.map)
+                if ok:
+                    self.manager.metric_locked = True
+                    return self._finish_init(frame, mcur)
             # re-seed the reference only when the scene moved on; a geometric
             # failure usually means not enough baseline yet
             if status == "few_matches":
                 self.initializer.set_reference_frame(frame)
             self._log(frame, None, 0)
             return None
+        if has_markers:  # hybrid: keypoint geometry, marker metric scale
+            cur = self._apply_marker_scale(ref_markers, cur)
         return self._finish_init(frame, cur)
+
+    def _apply_marker_scale(self, ref_markers, cur: Frame) -> Frame:
+        """Rescale a fresh two-view map to the metric baseline a marker seen
+        in both init frames gives, register that marker (its pose in the
+        reference camera's frame, which the scaling leaves in place) and
+        both keyframes' marker observations. -> cur with its scaled pose."""
+        got = self.initializer.marker_metric_scale(ref_markers, cur.markers)
+        if got is None:
+            return cur
+        metric_baseline, ri, g2m = got
+        T_cur = cur.pose_f2g.cpu().numpy().copy()
+        map_baseline = float(np.linalg.norm(T_cur[:3, 3]))
+        if map_baseline < 1e-6 or metric_baseline < 1e-6:
+            return cur
+        s = metric_baseline / map_baseline
+        self.map.scale(s)
+        self.manager.metric_locked = True  # the hybrid init is metric now
+        kf_slots = self.map.keyframes.active_slots()
+        slots_r = resolve_marker_slots(self.map, ref_markers)
+        self.map.set_markers([slots_r[ri]], mk_pose=g2m[None], mk_pose_valid=[True])
+        record_marker_observations(self.map, int(kf_slots[0]), ref_markers, slots_r)
+        slots_c = resolve_marker_slots(self.map, cur.markers)
+        record_marker_observations(self.map, int(kf_slots[1]), cur.markers, slots_c)
+        T_cur[:3, 3] *= s
+        return cur.replace(pose_f2g=torch.from_numpy(T_cur.astype(np.float32)).to(cur.pose_f2g.device))
 
     def _finish_init(self, frame: Frame, cur: Frame) -> np.ndarray:
         self.state = TrackingState.TRACKING
@@ -255,7 +325,13 @@ class System:
             cosang = np.clip((np.trace(dR) - 1.0) / 2.0, -1.0, 1.0)
             need = np.degrees(np.arccos(cosang)) >= p.kfRotationDeg
         confidence = res.n_inliers / max(res.n_matches, 1)
-        return bool(need and res.n_inliers >= 20 and confidence >= p.KFMinConfidence)
+        if need and res.n_inliers >= 20 and confidence >= p.KFMinConfidence:
+            return True
+        # marker-carried tracking (few keypoint inliers, markers in view):
+        # a keyframe every few frames, so mapping can triangulate once
+        # baseline appears
+        return bool(p.detectMarkers and res.n_inliers < 20 and self.frames_since_kf >= 4
+                    and res.frame.markers.valid.any())
 
     def _log(self, frame: Frame, pose, n_inliers) -> None:
         self.stats_log.append({

@@ -12,6 +12,12 @@ seeds `track`. With a dummy database, the frame is matched against the whole
 point arena (`_reloc_match`) and one PnP RANSAC (B2 at B = the arena's size)
 seeds `track`. The RANSAC rows come from the tracker's numpy Generator,
 seeded with the reference's PRNG constant, in a fixed order.
+
+The LM of every attempt has MK_ROWS rows beyond the keypoints': the corners
+of the frame's markers that have a map pose (4 rows each), fixed 3D->2D
+edges weighted so that the markers carry 0.3 of the total edge mass, and
+invalid zero rows where there are none. They are built on the host from the
+frame's markers and the map's host mirror and uploaded in one transfer.
 """
 
 from __future__ import annotations
@@ -25,13 +31,13 @@ from ucoslam_tpu_torch.config import Params
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import Frame, fetch_to_host
 from ucoslam_tpu_torch.mapping.map import Map, MapState
+from ucoslam_tpu_torch.markers.ippe import marker_object_points
 from ucoslam_tpu_torch.matching.kfmatch import match_keyframe_points_pnp_batch
 from ucoslam_tpu_torch.matching.projection import match_points_to_frame
 from ucoslam_tpu_torch.ops.hamming import INVALID_DIST, filter_ambiguous_train_sized, hamming_matrix, match_best2
 from ucoslam_tpu_torch.optim.pnp import draw_rows, motion_only_lm, pnp_ransac
 
-#: marker-corner rows appended to the motion-only LM (4 per frame marker);
-#: zero and invalid until markers are ported, kept so B2 sees the same B
+#: marker-corner rows appended to the motion-only LM (4 per frame marker)
 MK_ROWS = 64
 
 
@@ -145,18 +151,43 @@ class Tracker:
             torch.zeros(MK_ROWS, dtype=torch.bool, device=self.device),
         )
 
-    def _step(self, world_map: Map, frame: Frame, prior: torch.Tensor, thr: float):
+    def _marker_rows(self, world_map: Map, frame: Frame):
+        """Fixed 3D->2D corner rows of the frame's markers whose map pose is
+        known: (X (MK_ROWS, 3), uv (MK_ROWS, 2), valid (MK_ROWS,))."""
+        mk = frame.markers
+        if not self.params.detectMarkers or not mk.valid.any():
+            return self._zero_mk
+        map_ids, pose_valid, mk_pose, mk_size = world_map.h("mk_id", "mk_pose_valid", "mk_pose", "mk_size")
+        rows = np.zeros((MK_ROWS, 6), np.float32)  # X, uv, valid: one upload
+        k = 0
+        for i in np.nonzero(mk.valid)[0]:
+            sel = np.nonzero((map_ids == mk.id[i]) & pose_valid)[0]
+            if not len(sel) or k + 4 > MK_ROWS:
+                continue
+            s = int(sel[0])
+            obj = marker_object_points(np.float32(mk_size[s])).numpy()
+            rows[k : k + 4, :3] = obj @ mk_pose[s][:3, :3].T + mk_pose[s][:3, 3]
+            rows[k : k + 4, 3:5] = mk.und_corners[i]
+            rows[k : k + 4, 5] = 1.0
+            k += 4
+        if k == 0:
+            return self._zero_mk
+        rows = torch.from_numpy(rows).to(self.device)
+        return rows[:, :3].contiguous(), rows[:, 3:5].contiguous(), rows[:, 5] > 0
+
+    def _step(self, world_map: Map, frame: Frame, prior: torch.Tensor, thr: float, mk_rows):
         self.n_attempts += 1
         p = self.params
         return _track_step(
             world_map.state, frame, self.cam, prior, thr, float(p.maxDescDistance),
-            float(p.scaleFactor), *self._zero_mk, use_depth=self.cam.bl > 0,
+            float(p.scaleFactor), *mk_rows, use_depth=self.cam.bl > 0,
         )
 
     def track(self, world_map: Map, frame: Frame, prior: torch.Tensor) -> TrackResult:
         p = self.params
+        mk_rows = self._marker_rows(world_map, frame)
         pose, ids, inlier, n_matched, n_inliers, vis, seen = self._step(
-            world_map, frame, prior, float(p.projDistThr)
+            world_map, frame, prior, float(p.projDistThr), mk_rows
         )
         # ONE bundled transfer for everything the host control flow needs
         # (the keyframe policy and insertion read the frame's depth/valid)
@@ -167,7 +198,7 @@ class Tracker:
         if n_inl < 15:
             # one retry with a widened search radius
             pose, ids, inlier, n_matched, n_inliers, vis, seen = self._step(
-                world_map, frame, prior, float(p.projDistThr * 2.5)
+                world_map, frame, prior, float(p.projDistThr * 2.5), mk_rows
             )
             pose_np, ids_np, inlier_np, n_matched_np, n_inl = fetch_to_host(
                 pose, ids, inlier, n_matched, n_inliers

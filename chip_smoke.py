@@ -84,8 +84,29 @@ Phases (each prints one line or more; any failure raises and exits non-zero):
    the same mask), timed. B1 = 2 x track attempts + duplicate fusions and
    B2 = 2 x track attempts + batched verifications + marker pose refines in
    every run. With `--frames 150` only (a)'s first pass runs, against the
-   150-frame reference, and it runs even when phase 5 failed (the run then
-   fails after it).
+   150-frame reference; it runs even when phase 5 failed (the run then
+   fails after phase 9);
+9. stereo and RGB-D, on the `stereo` and `rgbd` parity scenes (the `mono`
+   scene seen with a 0.25 m baseline; `processStereo` on the rendered pair,
+   `processRGBD` on the render and its z-buffer in the TUM convention,
+   `depth_input`), each held to the JAX package's run of the same protocol
+   (`data/torch_port/{stereo,rgbd}_{map.slm,jax.json}`): (a) SLAM from
+   nothing (a depth init at JAX's frame, tracked >= JAX - 2, metric ATE
+   without scale alignment <= 1.2 x JAX + 0.002, keyframes and points
+   printed beside JAX's), a second pass with the same signature, save,
+   reload with the same signature, the reverse sweep (tracked >= JAX's - 2,
+   metric ATE <= 1.2 x JAX + 0.002); (b) the JAX package's map localized in
+   reverse (tracked >= JAX's, metric ATE as above, centres within 2% of the
+   depth extent of JAX's); (c) the frontend on frame FRONTEND_FRAME, the
+   card against the CPU on the same base frame and right keypoints (the
+   keypoints with depth the same but for at most 1%, depth within 1e-4
+   relative; the share with depth beside JAX's, the frontend's device
+   launches); (d) kernel B2 against its plain version on a tracked frame's
+   own inputs with live depth rows (pose < 1e-4, the same mask), timed.
+   The launch rules of phase 8 hold in every run. With `--frames 150` only
+   (a)'s first pass runs, against the 150-frame references. Phase 9 runs
+   even when phase 5 or 8 failed, and each kind even when the other
+   failed (the run then fails after them).
 
 The kernels' times are medians of CUDA-event timings of single launches
 (B2's batched record: of one batched launch, beside C single launches).
@@ -696,17 +717,34 @@ def camera_center(pose):
     return -pose[:3, :3].T @ pose[:3, 3]
 
 
-def load_scene(ref_path: str):
-    """-> (the JAX package's summary, camera, sequence, rendered images)."""
+def load_scene(ref_path: str, kind: str = "mono"):
+    """-> (the JAX package's summary, camera, sequence, each frame's input:
+    the rendered image, or for "stereo" / "rgbd" depth_input's tuple)."""
     from ucoslam_tpu_torch.geometry.camera import CameraParams
     from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
 
     with open(ref_path) as f:
         ref = json.load(f)
     c = ref["camera"]
-    cam = CameraParams.create(c["fx"], c["fy"], c["cx"], c["cy"], width=c["width"], height=c["height"])
+    cam = CameraParams.create(c["fx"], c["fy"], c["cx"], c["cy"], width=c["width"], height=c["height"],
+                              bl=c.get("bl", 0.0), rgb_depthscale=c.get("rgb_depthscale", 1.0 / 5000.0))
     seq = SyntheticSequence(cam=cam, **ref["sequence"])
-    return ref, cam, seq, [seq.render(i) for i in range(seq.n_frames)]
+    return ref, cam, seq, [seq.render(i) if kind == "mono" else depth_input(kind, seq, i) for i in range(seq.n_frames)]
+
+
+def feed(slam, kind: str, inputs, i: int):
+    """Frame i through the UcoSlam entry point of its kind: process(image),
+    processStereo(left, right) or processRGBD(image, raw depth)."""
+    if kind == "mono":
+        return slam.process(inputs, fseq=i)
+    return (slam.processStereo if kind == "stereo" else slam.processRGBD)(*inputs, i)
+
+
+def extract(ext, kind: str, inputs, i: int):
+    """Frame i's Frame from a FrameExtractor, by the method of its kind."""
+    if kind == "mono":
+        return ext.process(inputs, i)
+    return (ext.process_stereo if kind == "stereo" else ext.process_rgbd)(*inputs, i)
 
 
 def ate_of(poses: dict, seq) -> float:
@@ -765,13 +803,16 @@ def marker_errors(mk_id, mk_pose, mk_valid, poses: dict, seq, truth: dict) -> di
 
 def init_kind(slam, before_keyframes: int) -> str | None:
     """How a frame initialized the map of a UcoSlam (None if it did not):
-    `marker` (no points: the marker path), `hybrid` (two-view points made
-    metric by a marker), or `keypoint` (two-view, arbitrary scale)."""
+    `marker` (no points: the marker path), `depth` (one keyframe with
+    points: a stereo or RGB-D frame), `hybrid` (two-view points made metric
+    by a marker), or `keypoint` (two-view, arbitrary scale)."""
     if before_keyframes > 0 or slam.map.n_keyframes == 0:
         return None
     if not slam._system.manager.metric_locked:
         return "keypoint"
-    return "marker" if slam.map.n_points == 0 else "hybrid"
+    if slam.map.n_points == 0:
+        return "marker"
+    return "depth" if slam.map.n_keyframes == 1 else "hybrid"
 
 
 def phase_slice(scene):
@@ -845,8 +886,9 @@ KEYFRAME_STEPS = {"epipolar": "_create_epipolar_points", "fuse": "_fuse_duplicat
                   "cull_points": "_cull_recent_points", "cull_keyframes": "_cull_keyframes"}
 
 
-def slam_pass(params, cam, images) -> dict:
-    """One forward SLAM pass of `UcoSlam(device="cuda")` over the images:
+def slam_pass(params, cam, images, kind: str = "mono") -> dict:
+    """One forward SLAM pass of `UcoSlam(device="cuda")` over the images
+    (each fed by `feed` as `kind`):
     each `process` timed and classed by what the frame did (init, track, or
     a keyframe insertion), `new_keyframe` and its steps timed, the kernels'
     launches counted with the calls that launch them, the init's kind, and
@@ -888,10 +930,10 @@ def slam_pass(params, cam, images) -> dict:
         for i, img in enumerate(images):
             before, inserted = slam.map.n_keyframes, mgr.n_insertions
             t0 = time.perf_counter()
-            pose = slam.process(img, fseq=i)
+            pose = feed(slam, kind, img, i)
             torch.cuda.synchronize()
-            kind = "keyframe" if mgr.n_insertions > inserted else "track" if before > 0 else "init"
-            t_frame[kind].append(1e3 * (time.perf_counter() - t0))
+            did = "keyframe" if mgr.n_insertions > inserted else "track" if before > 0 else "init"
+            t_frame[did].append(1e3 * (time.perf_counter() - t0))
             if (k := init_kind(slam, before)) is not None:
                 init = dict(kind=k, frame=i)
             if pose is not None:
@@ -1297,29 +1339,52 @@ def marker_paths(frames: int) -> tuple[str, str]:
 MARKER_RESET_FRAME, MARKER_STRIP_FRAMES = 20, tuple(range(20, 25))
 
 
-def b2_capture(stack: contextlib.ExitStack, min_markers: int = 4) -> dict:
+#: the frame of phase 9 (c), whose share of keypoints with depth the JAX
+#: references record
+FRONTEND_FRAME = 30
+
+
+def depth_input(kind: str, seq, i: int) -> tuple:
+    """The image arguments of `processStereo` (kind "stereo": the rendered
+    left and right images) or `processRGBD` ("rgbd": the render and its
+    z-buffer in the TUM convention, uint16(z * 5000) truncated) for frame i
+    of a SyntheticSequence of either package."""
+    import numpy as np
+
+    if kind == "stereo":
+        return seq.render_stereo(i)
+    img, z = seq.render_with_depth(i)
+    return img, np.clip(np.asarray(z) * 5000.0, 0, 65535).astype(np.uint16)
+
+
+def b2_capture(stack: contextlib.ExitStack, rows: str = "marker") -> dict:
     """Keeps in the returned dict, while `stack` is open, the tracker's B2
-    inputs of the first call with at least `min_markers` live markers among
-    its corner rows."""
+    inputs of the first call with at least 4 live markers among its corner
+    rows (`rows` "marker"), or with depth on at least 100 valid rows
+    ("depth")."""
     from ucoslam_tpu_torch.slam import tracker
 
     kept = {}
 
     def around(inner, pose0, X, uv, sig, valid, cam, depth=None, bf=None, iters=10, rounds=4):
-        if not kept and int(valid[-64:].sum()) >= 4 * min_markers:
-            kept.update(tensors=[t.clone() for t in (pose0, X, uv, sig, valid)], cam=cam, iters=iters, rounds=rounds)
+        live = (int(valid[-64:].sum()) >= 16 if rows == "marker"
+                else depth is not None and int(((depth > 0) & valid).sum()) >= 100)
+        if not kept and live:
+            kept.update(tensors=[t.clone() for t in (pose0, X, uv, sig, valid)], cam=cam, iters=iters, rounds=rounds,
+                        depth=None if depth is None else depth.clone(), bf=bf)
         return inner(pose0, X, uv, sig, valid, cam, depth=depth, bf=bf, iters=iters, rounds=rounds)
 
     stack.enter_context(patched(tracker, "motion_only_lm", around))
     return kept
 
 
-def localize_sweep(map_path: str, cam, images, reloc: bool = False, capture: bool = False) -> dict:
-    """A reverse LOCALIZATION sweep of a checkpoint by UcoSlam(device="cuda");
-    with `reloc`, resetTracker() before MARKER_RESET_FRAME and the keypoints
-    of MARKER_STRIP_FRAMES removed after extraction (fed through
-    process_frame), so only the marker fallback can pose those frames; with
-    `capture`, B2's inputs of the first track with 4 live markers are kept."""
+def localize_sweep(map_path: str, cam, images, reloc: bool = False, capture: bool = False, kind: str = "mono") -> dict:
+    """A reverse LOCALIZATION sweep of a checkpoint by UcoSlam(device="cuda"),
+    each frame extracted as `kind` and fed through process_frame; with
+    `reloc`, resetTracker() before MARKER_RESET_FRAME and the keypoints of
+    MARKER_STRIP_FRAMES removed after extraction, so only the marker fallback
+    can pose those frames; with `capture`, B2's inputs of the first track
+    with 4 live markers (mono) or 100 rows with depth are kept."""
     import torch
     from ucoslam_tpu_torch import Mode
     from ucoslam_tpu_torch.api import UcoSlam
@@ -1331,13 +1396,13 @@ def localize_sweep(map_path: str, cam, images, reloc: bool = False, capture: boo
     poses, t_frame = {}, []
     with contextlib.ExitStack() as stack:
         calls = count_calls(stack)
-        kept = b2_capture(stack) if capture else {}
+        kept = b2_capture(stack, "marker" if kind == "mono" else "depth") if capture else {}
         reset_counts()
         for i in reversed(range(len(images))):
             t0 = time.perf_counter()
             if reloc and i == MARKER_RESET_FRAME:
                 slam.resetTracker()
-            f = slam._extractor.process(images[i], i)
+            f = extract(slam._extractor, kind, images[i], i)
             if reloc and i in MARKER_STRIP_FRAMES:
                 f = f.replace(valid=torch.zeros_like(f.valid))
             pose = slam.process_frame(f)
@@ -1384,37 +1449,48 @@ def marker_loop_on(device: str) -> dict:
                 drift_after=float(np.linalg.norm(poses[9] - scene["true_poses"][9])))
 
 
-def b2_marker_record(b2_args: dict) -> dict:
-    """Kernel B2 against its plain version on captured tracker inputs with
-    live marker rows: pose within 1e-4, the same mask, and its timing."""
+def b2_record(b2_args: dict, rows: str, tag: str, suffix: str) -> dict:
+    """Kernel B2 against its plain version on captured tracker inputs, with
+    live `rows` ("marker" corner rows, or "depth" rows of a stereo / RGB-D
+    frame): pose within 1e-4, the same mask, and its timing; the record's
+    keys end in `suffix`."""
     import torch
     from ucoslam_tpu_torch.ops.cuda import lm_kernel
 
     pose0, X, uv, sig, valid = b2_args["tensors"]
-    cam, iters, rounds = b2_args["cam"], b2_args["iters"], b2_args["rounds"]
+    cam, depth = b2_args["cam"], b2_args["depth"]
     args = (pose0, X, uv, sig, valid, cam.fx, cam.fy, cam.cx, cam.cy)
+    kw = dict(iters=b2_args["iters"], rounds=b2_args["rounds"])
+    if depth is not None:
+        kw.update(depth=depth, bf=b2_args["bf"], has_depth=True)
 
     def kernel():
-        return lm_kernel.motion_only_lm_fused(*args, iters=iters, rounds=rounds)
+        return lm_kernel.motion_only_lm_fused(*args, **kw)
 
     def plain():
-        return lm_kernel.motion_only_lm_plain(*args, iters=iters, rounds=rounds)
+        return lm_kernel.motion_only_lm_plain(*args, **kw)
 
     (pose_k, mask_k), (pose_p, mask_p) = kernel(), plain()
     torch.cuda.synchronize()
     err = float((pose_k - pose_p).abs().max())
-    live = int(valid[-64:].sum()) // 4
-    check(err < 1e-4, f"B2 on marker rows: pose differs by {err} from its plain version")
-    check(torch.equal(mask_k, mask_p), "B2 on marker rows: the inlier mask differs from its plain version")
+    check(err < 1e-4, f"B2 on {rows} rows: pose differs by {err} from its plain version")
+    check(torch.equal(mask_k, mask_p), f"B2 on {rows} rows: the inlier mask differs from its plain version")
     ms, plain_ms = median_ms(kernel, 50), median_ms(plain, 5)
     B = X.shape[0]
-    bound_ms, bound_by = b2_bound(B, iters, rounds, int(valid.sum()), int(mask_k.sum()), False)
-    sig_mk, sig_kp = float(sig[-1]), float(sig[:-64][valid[:-64]].median())
-    print(f"[8 B2 marker rows] B={B} {iters}x{rounds} live_markers={live} marker_sigma2={sig_mk:.4f} "
-          f"(keypoint rows' median {sig_kp:.4f}) pose_max_abs_err={err:.3e} masks equal kernel_ms={ms:.4f} "
-          f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by})")
-    return dict(live_markers_marker_rows=live, max_abs_err_marker_rows=err, ms_marker_rows=ms,
-                plain_ms_marker_rows=plain_ms, bound_ms_marker_rows=bound_ms, bound_by_marker_rows=bound_by)
+    bound_ms, bound_by = b2_bound(B, kw["iters"], kw["rounds"], int(valid.sum()), int(mask_k.sum()), depth is not None)
+    if rows == "marker":
+        live = int(valid[-64:].sum()) // 4
+        detail = (f"live_markers={live} marker_sigma2={float(sig[-1]):.4f} (keypoint rows' median "
+                  f"{float(sig[:-64][valid[:-64]].median()):.4f})")
+        extra = {f"live_markers{suffix}": live}
+    else:
+        live = int(((depth > 0) & valid).sum())
+        detail = f"valid_rows={int(valid.sum())} rows_with_depth={live} bf={b2_args['bf']}"
+        extra = {f"rows_with_depth{suffix}": live}
+    print(f"[{tag}] B={B} {kw['iters']}x{kw['rounds']} {detail} pose_max_abs_err={err:.3e} masks equal "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by})")
+    return {**extra, f"max_abs_err{suffix}": err, f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+            f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": bound_by}
 
 
 def phase_markers(frames: int, workdir: str) -> dict:
@@ -1554,7 +1630,162 @@ def phase_markers(frames: int, workdir: str) -> dict:
 
     # (e) B2 on a phase-8 frame's marker rows
     check(b2_args is not None, "(e): no phase-8 frame had 4 live markers in the tracker's rows")
-    return dict(launches=launches, b2=b2_marker_record(b2_args))
+    return dict(launches=launches, b2=b2_record(b2_args, "marker", "8 B2 marker rows", "_marker_rows"))
+
+
+def depth_paths(kind: str, frames: int) -> tuple[str, str]:
+    """-> (checkpoint, summary) of the JAX package's run of the `stereo` or
+    `rgbd` scenario over `frames` frames (make_reference_map.py --stereo /
+    --rgbd)."""
+    name = kind if frames == 60 else f"{kind}{frames}"
+    d = os.path.join(HERE, "data", "torch_port")
+    return os.path.join(d, f"{name}_map.slm"), os.path.join(d, f"{name}_jax.json")
+
+
+def frontend_on_shared_arrays(kind: str, params, cam, inputs, card: str = "cuda") -> dict:
+    """Phase 9 (c): the frame's depth from `process_stereo` / `process_rgbd`
+    on the `card` device and on the CPU, both given the CPU's base frame
+    (and, for stereo, the CPU's right-image keypoints) -> the keypoints with
+    depth on each side, the relative depth difference where both have one,
+    and the card frontend's own share of keypoints with depth and its device
+    launches."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.features.frame_extractor import FrameExtractor
+
+    def on(device, obj):
+        return dataclasses.replace(obj, **{f.name: getattr(obj, f.name).to(device) for f in dataclasses.fields(obj)
+                                           if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+    x = inputs[FRONTEND_FRAME]
+    cpu = FrameExtractor(params, cam, "cpu")
+    base, gray = cpu._base_frame(x[0], FRONTEND_FRAME)
+    right = cpu.orb.detect_and_compute(cpu._gray(x[1])) if kind == "stereo" else None
+    depth = []
+    for device in ("cpu", card):
+        ext = FrameExtractor(params, cam, device)
+        ext._base_frame = lambda img, fseq, d=device: (on(d, base), gray.to(d))
+        if right is not None:
+            ext.orb.detect_and_compute = lambda g, d=device: on(d, right)
+        depth.append(extract(ext, kind, x, FRONTEND_FRAME).depth.cpu().numpy())
+    a, b = depth[0] > 0, depth[1] > 0
+    both = a & b
+    rel = float((np.abs(depth[1][both] - depth[0][both]) / depth[0][both]).max()) if both.any() else 0.0
+    ext = FrameExtractor(params, cam, card)
+    f = extract(ext, kind, x, FRONTEND_FRAME)
+    valid, d = f.valid.cpu().numpy(), f.depth.cpu().numpy()
+    launches = count_launches(lambda: extract(ext, kind, x, FRONTEND_FRAME))
+    return dict(cpu=int(a.sum()), card=int(b.sum()), differ=int((a ^ b).sum()), max_rel=rel,
+                share=float((valid & (d > 0)).sum() / max(valid.sum(), 1)), launches=launches)
+
+
+def phase_depth(kind: str, frames: int, workdir: str) -> dict:
+    """Phase 9 for one kind ("stereo" or "rgbd") -> the kernels' launches on
+    its main paths and B2's record on its depth rows."""
+    import numpy as np
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.features import frame_extractor
+    from ucoslam_tpu_torch.io.serialize import load_map_meta
+
+    tag = f"9 {kind}"
+    jax_map, jax_json = depth_paths(kind, frames)
+    ref, cam, seq, inputs = load_scene(jax_json, kind)
+    params = Params.from_dict(load_map_meta(jax_map)["params"])  # what the JAX package mapped with
+    check(cam.bl == 0.25 and not params.detectMarkers, f"({kind}) the reference's camera and parameters")
+    j1 = ref["pass1"]
+    launches = {"B1": 0, "B2": 0, "B2_batched": 0}
+
+    def add(c):
+        for k in launches:
+            launches[k] += c[k]
+
+    def med(ts):
+        return f"{np.median(ts):.3f}" if len(ts) else "none"
+
+    # (a) SLAM from nothing; the depth step timed (stereo: row matching and
+    # SAD refinement; RGB-D: the depth image's sampling)
+    t_step = []
+    step = "stereo_depth" if kind == "stereo" else "bilinear_sample"
+    with patched(frame_extractor, step, timing(t_step)):
+        run = slam_pass(params, cam, inputs, kind)
+    slam, poses = run["slam"], run["poses"]
+    add(run["launches"])
+    for p in poses.values():
+        check(p.shape == (4, 4) and np.isfinite(p).all(), f"({kind} a): a non-finite pose")
+    ms = metric_summary(poses, seq)
+    slam.map.check_consistency()
+    check_slam_launches(run, f"({kind} a) pass 1")
+    print(f"[{tag}] (a) pass 1: frames={len(inputs)} tracked={len(poses)} (jax {j1['tracked']}) metric_ate="
+          f"{ms['metric_ate']:.6f} (jax {j1['metric_ate']:.6f}) horn_scale={ms['horn_scale']:.4f} (jax "
+          f"{j1['horn_scale']:.4f}) keyframes={slam.map.n_keyframes} (jax {j1['keyframes']}) points="
+          f"{slam.map.n_points} (jax {j1['points']}) init={run['init']} (jax {j1['init']}) "
+          f"metric_locked={slam._system.manager.metric_locked} loop_closures={slam._system.manager.loop_closures} "
+          f"attempts={run['attempts']} insertions={run['insertions']} fusions={run['fusions']} "
+          f"launches={run['launches']}")
+    check(run["init"] == dict(kind="depth", frame=j1["init"]["frame"]) and j1["init"]["keyframes"] == 1,
+          f"({kind} a): init {run['init']}, the JAX package's {j1['init']}")
+    check(len(poses) >= j1["tracked"] - 2, f"({kind} a): tracked over 2 frames fewer than the JAX package")
+    check(ms["metric_ate"] <= 1.2 * j1["metric_ate"] + 0.002, f"({kind} a): metric ATE {ms['metric_ate']} over the limit")
+    steps = run["steps"]
+    print(f"[{tag} times] process_ms_median: track={med(run['t_frame']['track'])} (n={len(run['t_frame']['track'])}) "
+          f"keyframe={med(run['t_frame']['keyframe'])} (n={len(run['t_frame']['keyframe'])}) "
+          f"init={med(run['t_frame']['init'])}; {step}_ms_median={med(t_step)} (n={len(t_step)}); "
+          f"new_keyframe_ms_median={med(steps['new_keyframe'])}: epipolar={med(steps['epipolar'])} "
+          f"fuse={med(steps['fuse'])} local_ba={med(steps['local_ba'])} (n={len(steps['local_ba'])})")
+    if frames != 60:
+        return dict(launches=launches)
+    # a second pass gives the same signature
+    again = slam_pass(params, cam, inputs, kind)
+    add(again["launches"])
+    check_slam_launches(again, f"({kind} a) pass 1 again")
+    sig, sig_again = slam.getSignatureStr(), again["slam"].getSignatureStr()
+    check(sig == sig_again, f"({kind} a): a second pass 1 gave another signature")
+    del again
+    # save, reload (the same signature), the reverse sweep; B2's inputs kept
+    path = os.path.join(workdir, f"{kind}.slm")
+    slam.saveToFile(path)
+    rev = localize_sweep(path, cam, inputs, capture=True, kind=kind)
+    add(rev["launches"])
+    check_sweep_launches(rev, f"({kind} a) reverse sweep")
+    check(rev["signature"] == sig, f"({kind} a): the reloaded checkpoint has another signature")
+    rs = metric_summary(rev["poses"], seq)
+    j2 = ref["reverse"]
+    print(f"[{tag}] (a) signature={sig} again={sig_again}; reload + reverse sweep: tracked={len(rev['poses'])} "
+          f"(jax pass 2 {j2['tracked']}) metric_ate={rs['metric_ate']:.6f} (jax {j2['metric_ate']:.6f}) "
+          f"process_ms_median={med(rev['t_frame'])} launches={rev['launches']}")
+    check(len(rev["poses"]) >= j2["tracked"] - 2, f"({kind} a): the reverse sweep tracked over 2 frames fewer than JAX's")
+    check(rs["metric_ate"] <= 1.2 * j2["metric_ate"] + 0.002, f"({kind} a): reverse-sweep metric ATE {rs['metric_ate']}")
+
+    # (b) the JAX package's map, reverse sweep
+    r = localize_sweep(jax_map, cam, inputs, kind=kind)
+    add(r["launches"])
+    check_sweep_launches(r, f"({kind} b)")
+    jp = {int(k): np.asarray(v) for k, v in j2["poses"].items()}
+    sb = metric_summary(r["poses"], seq)
+    tol = 0.02 * ref["depth_extent"]
+    dev = max(np.linalg.norm(camera_center(r["poses"][i]) - camera_center(jp[i])) for i in r["poses"] if i in jp)
+    print(f"[{tag}] (b) jax map: tracked={len(r['poses'])} (jax {j2['tracked']}) metric_ate={sb['metric_ate']:.6f} "
+          f"(jax {j2['metric_ate']:.6f}) max_centre_dev={dev:.6f} (tol {tol:.6f}) "
+          f"process_ms_median={med(r['t_frame'])} launches={r['launches']}")
+    check(len(r["poses"]) >= j2["tracked"], f"({kind} b): tracked fewer frames than the JAX package")
+    check(sb["metric_ate"] <= 1.2 * j2["metric_ate"] + 0.002, f"({kind} b): metric ATE {sb['metric_ate']}")
+    check(dev <= tol, f"({kind} b): a camera centre {dev} from JAX's (tol {tol})")
+
+    # (c) the frontend on one frame, card against CPU on the same arrays
+    c = frontend_on_shared_arrays(kind, params, cam, inputs)
+    jf = ref["frontend"]
+    print(f"[{tag}] (c) frame {FRONTEND_FRAME} on shared arrays: with_depth cpu={c['cpu']} card={c['card']} "
+          f"differ={c['differ']} max_rel_depth_diff={c['max_rel']:.3e}; card frontend share_with_depth="
+          f"{c['share']:.4f} (jax {jf['share']:.4f}) device_launches_per_frame={c['launches']} (torch.profiler)")
+    check(c["cpu"] > 100 and c["differ"] <= 0.01 * c["cpu"], f"({kind} c): keypoints with depth differ: {c}")
+    check(c["max_rel"] <= 1e-4, f"({kind} c): depth differs by {c['max_rel']} relative")
+
+    # (d) B2 on a tracked frame's own inputs, depth rows live
+    check(rev["b2_args"] is not None, f"({kind} d): no tracked frame had 100 rows with depth")
+    b2 = b2_record(rev["b2_args"], "depth", f"{tag} (d) B2 depth rows", f"_{kind}_rows")
+    return dict(launches=launches, b2=b2)
 
 
 def main(argv=None) -> int:
@@ -1562,7 +1793,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description="Smoke test of the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--frames", type=int, default=60, choices=(60, 150),
-                    help="frames of the mono and markers scenarios that phases 5 and 8 map "
+                    help="frames of the mono, markers, stereo and rgbd scenarios that phases 5, 8 and 9 map "
                          "(the JAX references' length)")
     args = ap.parse_args(argv)
     try:
@@ -1605,8 +1836,8 @@ def main(argv=None) -> int:
         try:
             slam = phase_slam(scene if args.frames == 60 else load_scene(slam_ref), slam_map, workdir)
         except SmokeFailure as e:
-            # phase 8 does not depend on phase 5: it still runs and reports,
-            # and the run fails after it
+            # no later phase but 6 and 7 depends on phase 5: they still run
+            # and report, and the run fails after them
             failed, slam = e, None
             print(f"[5 slam] FAILED: {e}")
         lap("5")
@@ -1621,11 +1852,19 @@ def main(argv=None) -> int:
             launches = {k: n + recovery["launches"][k] + loop["launches"][k] for k, n in launches.items()}
             b2["launches_batched"] = recovery["launches"]["B2_batched"] + loop["launches"]["B2_batched"]
             b2.update(reloc_process_ms=recovery["bow"]["reloc_ms"], reloc_bf_process_ms=recovery["bf"]["reloc_ms"])
-        markers = phase_markers(args.frames, workdir)
-        lap("8")
-        launches = {k: n + markers["launches"][k] for k, n in launches.items()}
-        b2["launches_batched"] = b2.get("launches_batched", 0) + markers["launches"]["B2_batched"]
-        b2.update(markers.get("b2", {}))
+        for phase, kind in (("8", None), ("9 stereo", "stereo"), ("9 rgbd", "rgbd")):
+            try:
+                part = phase_markers(args.frames, workdir) if kind is None else phase_depth(kind, args.frames, workdir)
+            except SmokeFailure as e:
+                # no phase from 8 on depends on another: each still runs and
+                # reports, and the run fails after them
+                failed, part = failed or e, None
+                print(f"[{phase}] FAILED: {e}")
+            lap(phase)
+            if part is not None:
+                launches = {k: n + part["launches"][k] for k, n in launches.items()}
+                b2["launches_batched"] = b2.get("launches_batched", 0) + part["launches"]["B2_batched"]
+                b2.update(part.get("b2", {}))
     if failed is not None:
         raise failed
     print(f"[time] seconds by phase {json.dumps(seconds)} total={time.perf_counter() - t_start:.1f}")

@@ -357,3 +357,55 @@ def test_ippe_and_best_pose_from_markers_card_equals_cpu(card):
         assert markermap.update_marker_poses(m, seq.cam, params) == 3
         poses[str(device)] = markermap.best_pose_from_valid_markers(m, seq.frame(24, device="cpu").markers, seq.cam)
     assert np.abs(poses["cpu"] - poses[str(card)]).max() < 1e-3
+
+
+@pytest.mark.parametrize("mode", ["nearest", "bilinear"])
+def test_bilinear_sample_card_equals_cpu(card, mode):
+    from ucoslam_tpu_torch.ops.image import bilinear_sample
+
+    rng = np.random.default_rng(7)
+    img = torch.from_numpy(rng.uniform(0, 255, (2, 480, 640)).astype(np.float32))
+    xy = torch.from_numpy(rng.uniform(-3, 643, (2, 2048, 121, 2)).astype(np.float32))  # past every border too
+    for args in ((img[0], xy[0]), (img, xy)):  # one image, and a stack each at its own points
+        want = bilinear_sample(*args, mode=mode)
+        got = bilinear_sample(*(a.to(card) for a in args), mode=mode).cpu()
+        if mode == "nearest":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=0)
+
+
+@pytest.mark.parametrize("kind", ["stereo", "rgbd"])
+def test_depth_frontend_card_equals_cpu(card, kind):
+    """stereo_depth (row matching, SAD refinement) and the RGB-D sampling on
+    the card against the CPU on the same base frame and right keypoints: the
+    same keypoints with depth except at most 1%, depth within 1e-4 relative."""
+    from ucoslam_tpu_torch.config import Params as PortParams
+    from ucoslam_tpu_torch.geometry.camera import CameraParams
+    from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
+
+    cam = CameraParams.create(500.0, 500.0, 320.0, 240.0, width=640, height=480, bl=0.25)
+    seq = SyntheticSequence(cam=cam, n_frames=40, n_points=1600, seed=5)
+    params = PortParams().replace(detectMarkers=False, maxDescDistance=60.0)
+    inputs = {chip_smoke.FRONTEND_FRAME: chip_smoke.depth_input(kind, seq, chip_smoke.FRONTEND_FRAME)}
+    c = chip_smoke.frontend_on_shared_arrays(kind, params, cam, inputs, card=card)
+    assert c["cpu"] > 100 and c["differ"] <= 0.01 * c["cpu"], c
+    assert c["max_rel"] <= 1e-4, c
+
+
+def test_stereorectify_card_equals_cpu(card):
+    from ucoslam_tpu_torch.geometry.camera import CameraParams
+    from ucoslam_tpu_torch.geometry.se3 import so3_exp
+    from ucoslam_tpu_torch.io.stereorectify import StereoRectify
+
+    cam_l = CameraParams.create(460.0, 460.0, 320.0, 240.0, dist=[0.05, -0.1, 0.001, -0.001, 0.0])
+    cam_r = CameraParams.create(455.0, 455.0, 315.0, 242.0, dist=[0.04, -0.08, -0.001, 0.001, 0.0])
+    R = so3_exp(torch.tensor([0.01, -0.03, 0.005])).numpy()
+    T = np.asarray([-0.11, 0.002, -0.004])
+    rng = np.random.default_rng(101)
+    left, right = (rng.uniform(0, 255, (480, 640)).astype(np.float32) for _ in range(2))
+    on = {str(d): StereoRectify(cam_l, cam_r, R, T, device=d) for d in ("cpu", card)}
+    cpu, gpu = on["cpu"], on[str(card)]
+    torch.testing.assert_close(gpu.remap_grids().cpu(), cpu.remap_grids(), rtol=1e-5, atol=1e-5)
+    for g, c in zip(gpu.rectify(left, right), cpu.rectify(left, right)):
+        np.testing.assert_allclose(g, c, atol=1e-3 * 255, rtol=0)

@@ -20,7 +20,10 @@ with another frame count F, `monoF_map.slm` and `monoF_reverse_jax.json`.
 With `--init-seeds N`, runs only pass 1, once for each of N keys of the
 two-view init's draws (0x1717, the package's own, then 1, 2, ...), and
 writes `mono[F]_init_spread_jax.json` (per key: tracked frames, ATE,
-keyframes, points), the JAX side of `tools/port/slam_spread.py`.
+keyframes, points), the JAX side of `tools/port/slam_spread.py`; with
+`--markers` too, `markers[F]_init_spread_jax.json` (per key also the init's
+kind and frame, the ATE metric, without scale alignment, and the mapped
+markers' distance from the scene's).
 
 The recovery scenarios (60 frames; any of the flags, run in turn), each
 written to `mono_<name>_jax.json` with per-frame poses and counts:
@@ -46,6 +49,16 @@ their position error, the init kind and frame), the reverse LOCALIZATION
 sweep of the checkpoint, and the same sweep with `resetTracker()` at
 MARKER_RESET_FRAME and the keypoints of MARKER_STRIP_FRAMES removed after
 extraction, which only the marker fallback can pose.
+
+`--stereo` and `--rgbd` run the `stereo` and `rgbd` parity scenarios: SEQUENCE
+seen by a rig with a 0.25 m baseline (DEPTH_CAMERA), through `processStereo`
+on the rendered pair or `processRGBD` on the render and its z-buffer in the TUM
+convention (`chip_smoke.depth_input`), with PARAMS. Each writes
+`<kind>[F]_map.slm` and `<kind>[F]_jax.json`: pass 1 (tracked frames, metric
+ATE without scale alignment, the init's frame and keyframes, keyframes,
+points, the signature, the poses), the reverse LOCALIZATION sweep of the
+checkpoint, and the share of frame FRONTEND_FRAME's keypoints that got a
+depth. The JSON's camera carries `bl` and `rgb_depthscale`.
 """
 
 from __future__ import annotations
@@ -57,7 +70,9 @@ import os
 import jax.numpy as jnp
 import numpy as np
 
-from chip_smoke import init_kind, marker_errors, metric_summary, reseed_frame
+from chip_smoke import (
+    FRONTEND_FRAME, depth_input, extract, feed, init_kind, marker_errors, metric_summary, reseed_frame,
+)
 from ucoslam_tpu.api import UcoSlam
 from ucoslam_tpu.config import Mode, Params
 from ucoslam_tpu.geometry.camera import CameraParams
@@ -80,6 +95,10 @@ MARKER_PARAMS = PARAMS.replace(detectMarkers=True, aruco_markerSize=0.6)
 #: these frames' keypoints removed after extraction
 MARKER_RESET_FRAME = 20
 MARKER_STRIP_FRAMES = tuple(range(20, 25))
+#: tools/parity/run_parity.py `stereo` and `rgbd`: the camera with a 0.25 m
+#: baseline, and the TUM depth scale (raw / 5000 = metres)
+DEPTH_CAMERA = dict(CAMERA, bl=0.25, rgb_depthscale=1.0 / 5000.0)
+DEPTH_SEQUENCE = {"stereo": dict(SEQUENCE, depth_mode="stereo"), "rgbd": dict(SEQUENCE)}
 
 
 def camera_center(pose_f2g: np.ndarray) -> np.ndarray:
@@ -209,11 +228,15 @@ def recovery(name: str, params: Params, cam: CameraParams, seq: SyntheticSequenc
     return out
 
 
-def markers_run(cam: CameraParams, seq: SyntheticSequence, map_path: str) -> dict:
-    """The `--markers` runs of the module docstring -> their summary."""
-    truth = seq._marker_detector.poses
+def markers_pass1(cam: CameraParams, seq: SyntheticSequence, key: int | None = None):
+    """Pass 1 of the markers scenario, the init's draws keyed `key` (the
+    package's own by default) -> (UcoSlam, poses, the init's kind and frame)."""
+    import jax
+
     slam = UcoSlam()
     slam.setParams(None, MARKER_PARAMS, cam)
+    if key is not None:
+        slam._system.initializer._key = jax.random.PRNGKey(key)
     fwd, kind = {}, None
     for i in range(seq.n_frames):
         before = slam.map.n_keyframes
@@ -223,8 +246,33 @@ def markers_run(cam: CameraParams, seq: SyntheticSequence, map_path: str) -> dic
             kind = dict(kind=k, frame=i)
         if pose is not None:
             fwd[i] = np.asarray(pose, np.float32)
+    return slam, fwd, kind
+
+
+def marker_map_errors(slam: UcoSlam, fwd: dict, seq: SyntheticSequence) -> dict:
     st = slam.map.state
-    mk = marker_errors(np.asarray(st.mk_id), np.asarray(st.mk_pose), np.asarray(st.mk_pose_valid), fwd, seq, truth)
+    return marker_errors(np.asarray(st.mk_id), np.asarray(st.mk_pose), np.asarray(st.mk_pose_valid), fwd, seq,
+                         seq._marker_detector.poses)
+
+
+def marker_init_spread(cam: CameraParams, seq: SyntheticSequence, n_keys: int) -> list[dict]:
+    """Markers pass 1 once per PRNG key of the initializer's draws; "ate" is
+    the metric ATE."""
+    runs = []
+    for key in [0x1717] + list(range(1, n_keys)):
+        slam, fwd, kind = markers_pass1(cam, seq, key)
+        ms = metric_summary(fwd, seq)
+        runs.append(dict(key=key, init=kind, tracked=len(fwd), ate=ms["metric_ate"], scale_aligned_ate=ms["ate"],
+                         **marker_map_errors(slam, fwd, seq), keyframes=slam.map.n_keyframes,
+                         points=slam.map.n_points))
+        print(json.dumps(runs[-1]), flush=True)
+    return runs
+
+
+def markers_run(cam: CameraParams, seq: SyntheticSequence, map_path: str) -> dict:
+    """The `--markers` runs of the module docstring -> their summary."""
+    slam, fwd, kind = markers_pass1(cam, seq)
+    mk = marker_map_errors(slam, fwd, seq)
     pass1 = dict(tracked=len(fwd), **metric_summary(fwd, seq), **mk, init=kind, keyframes=slam.map.n_keyframes,
                  points=slam.map.n_points, insertions=slam._system.manager.kf_counter,
                  loop_closures=slam._system.manager.loop_closures,
@@ -254,12 +302,51 @@ def markers_run(cam: CameraParams, seq: SyntheticSequence, map_path: str) -> dic
                 slm_bytes=os.path.getsize(map_path), **sweeps)
 
 
+def depth_run(kind: str, cam: CameraParams, seq: SyntheticSequence, map_path: str) -> dict:
+    """The `--stereo` / `--rgbd` runs of the module docstring -> their summary."""
+    slam = UcoSlam()
+    slam.setParams(None, PARAMS, cam)
+    fwd, init = {}, None
+    for i in range(seq.n_frames):
+        before = slam.map.n_keyframes
+        pose = feed(slam, kind, depth_input(kind, seq, i), i)
+        if before == 0 and slam.map.n_keyframes > 0:
+            init = dict(frame=i, keyframes=slam.map.n_keyframes, metric_locked=slam._system.manager.metric_locked)
+        if pose is not None:
+            fwd[i] = np.asarray(pose, np.float32)
+    pass1 = dict(tracked=len(fwd), **metric_summary(fwd, seq), init=init, keyframes=slam.map.n_keyframes,
+                 points=slam.map.n_points, insertions=slam._system.manager.kf_counter,
+                 loop_closures=slam._system.manager.loop_closures, signature=slam.map.signature(),
+                 poses=poses_json(fwd))
+    slam.saveToFile(map_path)
+    extent = map_depth_extent(slam)
+    f = extract(slam._extractor, kind, depth_input(kind, seq, FRONTEND_FRAME), FRONTEND_FRAME)
+    valid = np.asarray(f.valid)
+    with_depth = int((valid & (np.asarray(f.depth) > 0)).sum())
+    frontend = dict(frame=FRONTEND_FRAME, keypoints=int(valid.sum()), with_depth=with_depth,
+                    share=with_depth / max(int(valid.sum()), 1))
+
+    loc = UcoSlam()
+    loc.readFromFile(map_path, cam)
+    loc.setMode(Mode.LOCALIZATION)
+    rev = {}
+    for i in reversed(range(seq.n_frames)):
+        pose = feed(loc, kind, depth_input(kind, seq, i), i)
+        if pose is not None:
+            rev[i] = np.asarray(pose, np.float32)
+    reverse = dict(tracked=len(rev), **metric_summary(rev, seq), poses=poses_json(rev))
+    return dict(pass1=pass1, reverse=reverse, frontend=frontend, depth_extent=extent,
+                slm_bytes=os.path.getsize(map_path))
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default="data/torch_port")
     ap.add_argument("--frames", type=int, default=SEQUENCE["n_frames"])
     ap.add_argument("--init-seeds", type=int, default=0)
     ap.add_argument("--markers", action="store_true", help="the markers scenario (see above)")
+    ap.add_argument("--stereo", action="store_true", help="the stereo scenario (see above)")
+    ap.add_argument("--rgbd", action="store_true", help="the RGB-D scenario (see above)")
     for flag in ("reloc", "reloc-brute-force", "gap", "reseed"):
         ap.add_argument(f"--{flag}", action="store_true", help="a recovery scenario (see above)")
     args = ap.parse_args(argv)
@@ -270,10 +357,31 @@ def main(argv=None) -> None:
     sequence = dict(SEQUENCE, n_frames=args.frames)
     seq = SyntheticSequence(cam=cam, **sequence)
     name = "mono" if args.frames == SEQUENCE["n_frames"] else f"mono{args.frames}"
+    for kind in [k for k in ("stereo", "rgbd") if getattr(args, k)]:
+        c = DEPTH_CAMERA
+        cam = CameraParams.create(c["fx"], c["fy"], c["cx"], c["cy"], width=c["width"], height=c["height"],
+                                  bl=c["bl"], rgb_depthscale=c["rgb_depthscale"])
+        sequence = dict(DEPTH_SEQUENCE[kind], n_frames=args.frames)
+        seq = SyntheticSequence(cam=cam, **sequence)
+        name = name.replace("mono", kind)
+        out = {"sequence": sequence, "camera": DEPTH_CAMERA, "params": dict(maxDescDistance=60.0, detectMarkers=False),
+               **depth_run(kind, cam, seq, os.path.join(args.out_dir, f"{name}_map.slm"))}
+        with open(os.path.join(args.out_dir, f"{name}_jax.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        print(json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "poses"} if isinstance(v, dict) else v)
+                          for k, v in out.items()}), flush=True)
+        name = name.replace(kind, "mono")
+    if args.stereo or args.rgbd:
+        return
     if args.markers:
         sequence = dict(MARKER_SEQUENCE, n_frames=args.frames)
         seq = SyntheticSequence(cam=cam, **sequence)
         name = name.replace("mono", "markers")
+        if args.init_seeds:
+            runs = marker_init_spread(cam, seq, args.init_seeds)
+            with open(os.path.join(args.out_dir, f"{name}_init_spread_jax.json"), "w") as f:
+                json.dump({"sequence": sequence, "runs": runs}, f, indent=1)
+            return
         out = {"sequence": sequence, "camera": CAMERA,
                **markers_run(cam, seq, os.path.join(args.out_dir, f"{name}_map.slm"))}
         with open(os.path.join(args.out_dir, f"{name}_jax.json"), "w") as f:

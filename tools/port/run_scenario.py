@@ -4,12 +4,17 @@ The scenarios are `tools/parity/run_parity.py`'s, rebuilt with the port's
 own `SyntheticSequence` (that script imports the JAX package): `mono` (60
 frames, 1600 points), `loop_easy` (240 frames, 2200 points, the
 `sweep_back` trajectory that returns to its start) and `markers` (150
-frames, 1600 points, ten 0.6 m markers), on the sequence's own camera. The
+frames, 1600 points, ten 0.6 m markers), on the sequence's own camera;
+`stereo` and `rgbd` (150 frames, 1600 points) with a 0.25 m baseline, fed
+through `processStereo` (the rendered pair) and `processRGBD` (the render
+and its z-buffer in the TUM convention, `chip_smoke.depth_input`). The
 protocol is `ucoslam_tpu/apps/test_sequence.py`'s, with its default
 parameters (maxMapPoints 8192, maxKeyFrames 64, 1024 keypoints,
 maxDescDistance 60; marker detection off where the scene holds no markers,
-on with aruco_markerSize 0.6 for `markers`, whose ATE is then metric, without
-scale alignment, as run_parity.py takes it):
+on with aruco_markerSize 0.6 for `markers`). The ATE of `markers`,
+`stereo` and `rgbd` is metric, without scale alignment, as run_parity.py
+takes it; run_parity.py feeds its images as 8-bit PNGs, this script the
+float32 renders:
 pass 1 maps the rendered frames in SLAM mode, then `globalOptimization`,
 save; pass 2 reads the checkpoint, `setMode(LOCALIZATION)`,
 `resetTracker()` and localizes the frames again. It prints per pass the
@@ -41,22 +46,27 @@ sys.path.insert(0, REPO)
 import chip_smoke  # noqa: E402
 from ucoslam_tpu_torch.api import UcoSlam  # noqa: E402
 from ucoslam_tpu_torch.config import Mode, Params  # noqa: E402
+from ucoslam_tpu_torch.geometry.camera import CameraParams  # noqa: E402
 from ucoslam_tpu_torch.io.synthetic import SyntheticSequence  # noqa: E402
 
 SCENARIOS = {
     "mono": dict(n_frames=60, n_points=1600, seed=5),
     "loop_easy": dict(n_frames=240, n_points=2200, seed=5, trajectory="sweep_back"),
     "markers": dict(n_frames=150, n_points=1600, n_markers=10, marker_size=0.6, seed=5),
+    "stereo": dict(n_frames=150, n_points=1600, seed=5, depth_mode="stereo"),
+    "rgbd": dict(n_frames=150, n_points=1600, seed=5),
 }
+#: the camera of run_parity.py's `stereo` and `rgbd` scenes
+DEPTH_CAMERA = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480, bl=0.25)
 PARAMS = Params().replace(maxMapPoints=8192, maxKeyFrames=64, maxKeyPointsPerFrame=1024, maxDescDistance=60.0,
                           detectMarkers=False)
 
 
-def timed_pass(slam: UcoSlam, images) -> tuple[dict, list]:
+def timed_pass(slam: UcoSlam, images, kind: str) -> tuple[dict, list]:
     poses, ms = {}, []
     for i, img in enumerate(images):
         t0 = time.perf_counter()
-        pose = slam.process(img, fseq=i)
+        pose = chip_smoke.feed(slam, kind, img, i)
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
         if pose is not None:
@@ -65,20 +75,23 @@ def timed_pass(slam: UcoSlam, images) -> tuple[dict, list]:
 
 
 def run(name: str) -> dict:
-    seq = SyntheticSequence(**SCENARIOS[name])
-    images = [seq.render(i) for i in range(seq.n_frames)]
+    kind = name if name in ("stereo", "rgbd") else "mono"
+    cam = CameraParams.create(**DEPTH_CAMERA) if kind != "mono" else None
+    seq = SyntheticSequence(cam=cam, **SCENARIOS[name])
+    images = [seq.render(i) if kind == "mono" else chip_smoke.depth_input(kind, seq, i) for i in range(seq.n_frames)]
     markers = name == "markers"
     params = PARAMS.replace(detectMarkers=True, aruco_markerSize=0.6) if markers else PARAMS
+    metric = markers or kind != "mono"
 
     def ate(poses):
         if len(poses) < 3:
             return None
-        return chip_smoke.metric_summary(poses, seq)["metric_ate"] if markers else chip_smoke.ate_of(poses, seq)
+        return chip_smoke.metric_summary(poses, seq)["metric_ate"] if metric else chip_smoke.ate_of(poses, seq)
 
     slam = UcoSlam(device="cuda")
     slam.setParams(None, params, seq.cam)
     t0 = time.perf_counter()
-    p1, ms1 = timed_pass(slam, images)
+    p1, ms1 = timed_pass(slam, images, kind)
     t_ba = time.perf_counter()
     slam.globalOptimization()
     torch.cuda.synchronize()
@@ -92,11 +105,11 @@ def run(name: str) -> dict:
         loc.readFromFile(path, seq.cam)
     loc.setMode(Mode.LOCALIZATION)
     loc.resetTracker()
-    p2, ms2 = timed_pass(loc, images)
+    p2, ms2 = timed_pass(loc, images, kind)
     n = seq.n_frames
     return dict(
         scenario=name, sequence=SCENARIOS[name], frames=n,
-        pass1=dict(tracked=len(p1), tracked_pct=len(p1) / n, ate=ate(p1), metric_ate=markers,
+        pass1=dict(tracked=len(p1), tracked_pct=len(p1) / n, ate=ate(p1), metric_ate=metric,
                    ms_median=float(np.median(ms1)), ms_mean=float(np.mean(ms1)), seconds=t_map,
                    global_ba_s=t_ba, loop_queries=mgr.loop_detector.n_queries,
                    loop_candidates=mgr.loop_detector.n_candidates, loops_closed=mgr.loop_closures,

@@ -16,9 +16,11 @@ map segment after a long loss, keypoint loop closure and
 `globalOptimization`, and ArUco markers (the native detector, built with
 g++; IPPE; marker and hybrid init with metric scale; marker rows in the
 tracker's LM; marker vertices in BA; the marker relocalization fallback;
-marker loops). Stereo/RGB-D input, the point-major BA, the async mapper and
-`.fbow` vocabularies are not ported yet (ROADMAP.md, Queue 1 items 4, 6
-and 7).
+marker loops), and stereo and RGB-D input (`processStereo` on a rectified
+pair, `io.stereorectify.StereoRectify` for a calibrated rig, and
+`processRGBD`; the one-frame metric depth init). The point-major BA, the
+async mapper and `.fbow` vocabularies are not ported yet (ROADMAP.md,
+Queue 1 items 6 and 7).
 
 This package imports neither jax nor anything of `ucoslam_tpu`: `Params`,
 `Mode` and `TrackingState` are its own (`ucoslam_tpu_torch.config`).

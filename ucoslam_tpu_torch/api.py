@@ -1,15 +1,17 @@
 """Public facade: the UcoSlam-equivalent user-facing class.
 
-Port of `ucoslam_tpu/api.py` for monocular sequential SLAM and
-LOCALIZATION: `setParams` (a fresh map, or one passed in) -> `process` per
+Port of `ucoslam_tpu/api.py` for sequential SLAM and LOCALIZATION:
+`setParams` (a fresh map, or one passed in) -> `process` (monocular),
+`processStereo` (a rectified pair; `io.stereorectify.StereoRectify` makes
+one from a calibrated rig) or `processRGBD` (an image and its raw depth) per
 frame -> `saveToFile` (map, tracker state, keyframe database, extractor
 sensitivity); `readFromFile` restores all of it; `setMode`,
 `updateParams`, `resetTracker` (the next frame relocalizes),
 `globalOptimization` (full-map BA) and the pose and signature queries.
 With `detectMarkers` (the default) `setParams` and `readFromFile` build the
 native ArUco detector from the `aruco_*` parameters and raise when it cannot
-be built. Stereo and RGB-D input and `.fbow` vocabularies are not ported yet
-(ROADMAP.md, Queue 1 items 4 and 7).
+be built. `.fbow` vocabularies are not ported yet (ROADMAP.md, Queue 1
+item 7).
 """
 
 from __future__ import annotations
@@ -64,6 +66,15 @@ class UcoSlam:
     def process(self, img: np.ndarray, fseq: int = 0) -> np.ndarray | None:
         """Monocular frame -> pose_f2g (4x4) or None when lost."""
         return self._system.process_frame(self._extractor.process(img, fseq))
+
+    def processStereo(self, left: np.ndarray, right: np.ndarray, fseq: int = 0) -> np.ndarray | None:
+        """Rectified stereo pair (the camera's `bl` > 0) -> pose_f2g or None."""
+        return self._system.process_frame(self._extractor.process_stereo(left, right, fseq))
+
+    def processRGBD(self, img: np.ndarray, depth: np.ndarray, fseq: int = 0) -> np.ndarray | None:
+        """Image and its registered raw depth image (metres = raw x the
+        camera's rgb_depthscale) -> pose_f2g or None."""
+        return self._system.process_frame(self._extractor.process_rgbd(img, depth, fseq))
 
     def process_frame(self, frame: Frame) -> np.ndarray | None:
         """Feed a pre-extracted Frame (the oracle path of the tests)."""

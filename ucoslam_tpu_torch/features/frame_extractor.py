@@ -1,11 +1,15 @@
-"""Frame ingestion: one image -> Frame (monocular).
+"""Frame ingestion: raw image(s) -> Frame (monocular, RGB-D, stereo).
 
-Port of the monocular ingest of `ucoslam_tpu/features/frame_extractor.py`:
-gray conversion, ORB detect + describe, keypoint undistortion, padding to
-the frame capacity, then the markers (`markers.detector.ArucoDetector`) and,
-with `removeKeyPointsIntoMarkers`, the keypoints inside a detected marker
-dropped. The cv2 grid extractor, the detector-resolution scaling, the
-sensitivity adaptation and stereo/RGB-D input are not ported.
+Port of `ucoslam_tpu/features/frame_extractor.py`. Every entry point starts
+from the same base frame of the (left) image: gray conversion, ORB detect +
+describe, keypoint undistortion, padding to the frame capacity, then the
+markers (`markers.detector.ArucoDetector`) and, with
+`removeKeyPointsIntoMarkers`, the keypoints inside a detected marker
+dropped. RGB-D samples the raw depth image at each keypoint; stereo runs a
+second ORB pass on the rectified right image, matches along rows and refines
+each match to subpixel disparity (`stereo_depth`). The cv2 grid extractor,
+the detector-resolution scaling and the sensitivity adaptation are not
+ported.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ from ucoslam_tpu_torch.config import DescriptorType, Params
 from ucoslam_tpu_torch.features.orb import ORBExtractor
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import Frame, empty_frame
-from ucoslam_tpu_torch.ops.image import rgb_to_gray
+from ucoslam_tpu_torch.ops.hamming import INVALID_DIST, hamming_matrix, match_best2, mutual_best
+from ucoslam_tpu_torch.ops.image import bilinear_sample, rgb_to_gray
 
 
 def points_in_quads(xy: torch.Tensor, quads: torch.Tensor, quad_valid: torch.Tensor) -> torch.Tensor:
@@ -55,10 +60,14 @@ class FrameExtractor:
             k_per_cell=1 if params.KPNonMaximaSuppresion else 4,
         )
 
-    def process(self, img: np.ndarray, fseq: int = 0) -> Frame:
-        """(H, W) gray or (H, W, 3) BGR image -> Frame on the device."""
+    def _gray(self, img: np.ndarray) -> torch.Tensor:
+        return rgb_to_gray(torch.from_numpy(np.ascontiguousarray(img)).to(self.device))
+
+    def _base_frame(self, img: np.ndarray, fseq: int) -> tuple[Frame, torch.Tensor]:
+        """(H, W) gray or (H, W, 3) BGR image -> (Frame, gray image), both on
+        the device."""
         cap = self.params.maxKeyPointsPerFrame
-        gray = rgb_to_gray(torch.from_numpy(np.ascontiguousarray(img)).to(self.device))
+        gray = self._gray(img)
         kps = self.orb.detect_and_compute(gray)
         und = self.cam.undistort_points(kps.xy) if self.cam.has_distortion() else kps.xy
 
@@ -84,4 +93,87 @@ class FrameExtractor:
                 quads = torch.from_numpy(f.markers.corners).to(self.device)
                 valid = torch.from_numpy(f.markers.valid).to(self.device)
                 f = f.replace(valid=f.valid & ~points_in_quads(f.xy, quads, valid))
-        return f
+        return f, gray
+
+    def process(self, img: np.ndarray, fseq: int = 0) -> Frame:
+        """(H, W) gray or (H, W, 3) BGR image -> Frame on the device."""
+        return self._base_frame(img, fseq)[0]
+
+    def process_rgbd(self, img: np.ndarray, depth: np.ndarray, fseq: int = 0) -> Frame:
+        """Image and its registered (H, W) raw depth image (metres = raw x
+        rgb_depthscale) -> Frame with each keypoint's depth, sampled at its
+        distorted pixel; 0 where the keypoint is invalid or the depth is not
+        positive."""
+        f, _ = self._base_frame(img, fseq)
+        raw = torch.from_numpy(np.ascontiguousarray(depth, np.float32)).to(self.device)
+        d = bilinear_sample(raw, f.xy, mode="nearest") * float(np.float32(self.cam.rgb_depthscale))
+        return f.replace(depth=torch.where(f.valid & (d > 0), d, 0.0))
+
+    def process_stereo(self, left: np.ndarray, right: np.ndarray, fseq: int = 0) -> Frame:
+        """Rectified pair -> Frame of the left image with each keypoint's
+        depth from its row match in the right image (`stereo_depth`)."""
+        f, gray_l = self._base_frame(left, fseq)
+        gray_r = self._gray(right)
+        kr = self.orb.detect_and_compute(gray_r)
+        cam = self.cam
+        # z >= baseline <=> disparity <= bf / bl (= fx); fx when bl == 0,
+        # where bf == 0 gives every keypoint depth 0, as in the reference
+        max_disp = float(np.float32(cam.bf) / np.float32(cam.bl)) if cam.bl > 0 else cam.fx
+        depth = stereo_depth(f, gray_l, gray_r, kr.xy, kr.desc, kr.octave, kr.valid, cam.bf, max_disp,
+                             float(np.float32(self.params.maxDescDistance)))
+        return f.replace(depth=depth)
+
+
+#: stereo_depth's SAD patch half-width and its search half-range along the row (px)
+SAD_HALF, SAD_RANGE = 5, 4
+
+
+def stereo_depth(f: Frame, gray_l, gray_r, xy_r, desc_r, octave_r, valid_r, bf: float, max_disp: float,
+                 max_desc_dist: float) -> torch.Tensor:
+    """(N,) depth of the left frame's keypoints, 0 where none.
+
+    A left keypoint matches the right keypoint of least Hamming distance
+    among those within 2 rows, at a disparity in (0, max_disp) and within
+    one octave, when the two are each other's best and the distance is at
+    most max_desc_dist (repetitive texture along a row aliases badly, so a
+    one-way best is not enough). The match is refined to subpixel: the SAD
+    of an 11x11 bilinear patch at 9 offsets along the row (+-4 px), then the
+    equiangular (V-shaped) vertex fit of the minimum and its neighbours; a
+    minimum at the search border is rejected. depth = bf / disparity.
+    Ties go to the lowest index in every argmin, as in the reference.
+    """
+    dev = gray_l.device
+    d = hamming_matrix(f.desc, desc_r)
+    row_ok = (f.xy[:, None, 1] - xy_r[None, :, 1]).abs() <= 2.0
+    disp = f.xy[:, None, 0] - xy_r[None, :, 0]
+    disp_ok = (disp > 0.0) & (disp < max_disp)
+    oct_ok = (f.octave[:, None] - octave_r[None, :]).abs() <= 1
+    mask = row_ok & disp_ok & oct_ok & valid_r[None, :] & f.valid[:, None]
+    idx, best, _ = match_best2(d, valid_rows=f.valid, extra_mask=mask)
+    mut = mutual_best(torch.where(mask, d, INVALID_DIST))
+    ok = (best <= max_desc_dist) & (mut == idx)
+
+    W, R = SAD_HALF, SAD_RANGE
+    du = torch.arange(-W, W + 1, dtype=torch.float32, device=dev)
+    gx, gy = torch.meshgrid(du, du, indexing="xy")
+    grid = torch.stack([gx, gy], -1).reshape(-1, 2)  # (121, 2) patch offsets, x fastest
+    patch_l = bilinear_sample(gray_l, f.xy[:, None, :] + grid[None], mode="bilinear")  # (N, 121)
+    x_r0, y_r = xy_r[idx, 0], xy_r[idx, 1]
+    offs = torch.arange(-R, R + 1, dtype=torch.float32, device=dev)
+    shift = torch.stack([offs, torch.zeros_like(offs)], -1)  # (9, 2): the offset moves x only
+    pts_r = torch.stack([x_r0, y_r], -1)[:, None, None, :] + grid[None, None] + shift[None, :, None, :]
+    patch_r = bilinear_sample(gray_r, pts_r, mode="bilinear")  # (N, 9, 121)
+    sad = (patch_r - patch_l[:, None, :]).abs().sum(-1)  # (N, 9)
+    j = torch.argmin(sad, -1)
+    jc = j.clamp(1, 2 * R - 1)  # interior for the vertex fit
+    s0, s1, s2 = (sad.gather(1, (jc + k)[:, None])[:, 0] for k in (-1, 0, 1))
+    # SAD of a step edge is piecewise linear in the offset: the two-slope
+    # fit recovers its fractional vertex, where a parabola would be biased
+    hi = torch.maximum(s0, s2)
+    delta = torch.where(hi > s1 + 1e-6, 0.5 * (s0 - s2) / (hi - s1), 0.0).clamp(-1.0, 1.0)
+    x_r = x_r0 + (jc.to(torch.float32) - R) + delta
+    refine_ok = (j >= 1) & (j <= 2 * R - 1)
+    disparity = f.xy[:, 0] - x_r
+    depth = bf / disparity.clamp(min=1e-3)
+    good = ok & f.valid & refine_ok & (disparity > 0.0) & (disparity < max_disp)
+    return torch.where(good, depth, 0.0)

@@ -69,6 +69,16 @@ class CameraParams:
         y = xyz[..., 1:2] * inv_z
         return torch.cat([self.fx * x + self.cx, self.fy * y + self.cy], -1)
 
+    def distort_normalized(self, xy: torch.Tensor) -> torch.Tensor:
+        """OpenCV radial-tangential distortion of normalized coordinates (..., 2)."""
+        k1, k2, p1, p2, k3 = (_f32(v) for v in self.dist)
+        x, y = xy[..., 0], xy[..., 1]
+        r2 = x * x + y * y
+        radial = 1.0 + r2 * (k1 + r2 * (k2 + r2 * k3))
+        xd = x * radial + 2.0 * p1 * x * y + p2 * (r2 + 2.0 * x * x)
+        yd = y * radial + p1 * (r2 + 2.0 * y * y) + 2.0 * p2 * x * y
+        return torch.stack([xd, yd], -1)
+
     def undistort_points(self, uv: torch.Tensor, iters: int = 8) -> torch.Tensor:
         """Distorted pixels (..., 2) -> undistorted pixels, by the reference's
         fixed-point inversion of the distortion."""

@@ -1,1 +1,1 @@
-"""Checkpoint loading and synthetic sequences."""
+"""Checkpoint loading, synthetic sequences and stereo rectification."""

@@ -1,7 +1,8 @@
 """Synthetic sequences with ground truth: rendered images and oracle frames.
 
 Port of `ucoslam_tpu/io/synthetic.py` (`SyntheticSequence.__init__`,
-`render`, `frame`, `gt_pose`, `gt_positions`). It draws the same random
+`render`, `render_stereo`, `render_with_depth`, `frame`, `gt_pose`,
+`gt_positions`). It draws the same random
 streams in the same order, so the images are byte-identical to the
 reference's for the same arguments (up to the marker poses' float32
 exponential), and the oracle frames hold the same keypoints, descriptors
@@ -220,6 +221,29 @@ class SyntheticSequence:
     def render(self, i: int) -> np.ndarray:
         """(H, W) float32 image of frame i: homography-rasterized textured
         quads, painted far to near."""
+        return self._render(i)[0]
+
+    def render_stereo(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        """(left, right) rectified pair of frame i: the right camera sits
+        the baseline `cam.bl` along the left camera's +x."""
+        left = self.render(i)
+        saved = self.poses[i]
+        T_r = saved.copy()
+        T_r[0, 3] -= self.cam.bl  # x_r = x_l - bl
+        self.poses[i] = T_r
+        try:
+            right = self.render(i)
+        finally:
+            self.poses[i] = saved
+        return left, right
+
+    def render_with_depth(self, i: int) -> tuple[np.ndarray, np.ndarray]:
+        """(image, depth) of frame i; depth is the renderer's exact z-buffer,
+        the camera-frame z of the visible surface at each pixel (0 where no
+        quad covers it)."""
+        return self._render(i, with_depth=True)
+
+    def _render(self, i: int, with_depth: bool = False):
         T = self.poses[i]
         R, t = T[:3, :3], T[:3, 3]
         fx, fy = float(self.cam.fx), float(self.cam.fy)
@@ -227,6 +251,7 @@ class SyntheticSequence:
         K = np.array([[fx, 0, cx], [0, fy, cy], [0, 0, 1]], np.float32)
         h, w = self.cam.height, self.cam.width
         img = np.full((h, w), 40.0, np.float32)
+        dep = np.zeros((h, w), np.float32) if with_depth else None
 
         cam_pts = self.points @ R.T + t
         z = cam_pts[:, 2]
@@ -282,8 +307,12 @@ class SyntheticSequence:
             tj = np.clip((((tt + 1.0) * 0.5) * th).astype(np.int32), 0, th - 1)
             patch = img[y0:y1, x0:x1]
             patch[inside] = tex[tj[inside], ti[inside]]
+            if with_depth:
+                # Uc, Vc are the plane's camera-frame basis: z = Cc.z + s Uc.z + t Vc.z
+                zpix = Cc[2] + s * Uc[2] + tt * Vc[2]
+                dep[y0:y1, x0:x1][inside] = zpix[inside]
         if self.brightness_drift != 0.0:
             sfrac = i / max(self.n_frames - 1, 1)
             gain = 1.0 + self.brightness_drift * np.sin(2 * np.pi * sfrac)
             img = np.clip(img * gain, 0.0, 255.0)
-        return img
+        return img, dep

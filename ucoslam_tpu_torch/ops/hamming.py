@@ -65,6 +65,17 @@ def match_best2(
     return best_idx, best, second
 
 
+def mutual_best(dist: torch.Tensor) -> torch.Tensor:
+    """(N, M) -> (N,) column of each row's mutual nearest neighbour, -1 where
+    the row's best column has another row as its best. Ties go to the lowest
+    index on both axes (torch.argmin returns the first minimum), so a column
+    whose entries are all equal points at row 0."""
+    fwd = torch.argmin(dist, dim=1)
+    bwd = torch.argmin(dist, dim=0)
+    mutual = bwd[fwd] == torch.arange(dist.shape[0], device=dist.device)
+    return torch.where(mutual, fwd, -1)
+
+
 def filter_ambiguous_train_sized(
     best_idx: torch.Tensor, best_dist: torch.Tensor, num_cols: int
 ) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Whole-image ops: gray conversion, Gaussian blur, pyramid, patches.
+"""Whole-image ops: gray conversion, Gaussian blur, pyramid, patches, sampling.
 
 Port of `ucoslam_tpu/ops/image.py`. Images are (H, W) float32 tensors. The
 pyramid resizes every level directly from level 0 with the same anti-aliased
@@ -96,3 +96,31 @@ def rgb_to_gray(img: torch.Tensor) -> torch.Tensor:
         return img
     b, g, r = img[..., 0], img[..., 1], img[..., 2]
     return 0.114 * b + 0.587 * g + 0.299 * r
+
+
+def bilinear_sample(img: torch.Tensor, xy: torch.Tensor, mode: str = "nearest") -> torch.Tensor:
+    """Sample an (H, W) image at continuous (..., 2) locations (x = column,
+    y = row) -> (...); or a stack of B images (B, H, W) at (B, ..., 2), each
+    image at its own locations. `nearest` rounds half to even and clips to
+    the image; `bilinear` clips the top-left neighbour to [0, W-2] x
+    [0, H-2] and the weights to [0, 1], as the reference does."""
+    h, w = img.shape[-2:]
+    x, y = xy[..., 0], xy[..., 1]
+    if img.ndim == 3:
+        b = torch.arange(img.shape[0], device=img.device).reshape((-1,) + (1,) * (x.ndim - 1))
+
+        def at(yy, xx):
+            return img[b, yy, xx]
+    else:
+
+        def at(yy, xx):
+            return img[yy, xx]
+    if mode == "nearest":
+        return at(torch.round(y).long().clamp(0, h - 1), torch.round(x).long().clamp(0, w - 1))
+    x0 = torch.floor(x).long().clamp(0, w - 2)
+    y0 = torch.floor(y).long().clamp(0, h - 2)
+    fx = (x - x0).clamp(0.0, 1.0)
+    fy = (y - y0).clamp(0.0, 1.0)
+    v00, v01 = at(y0, x0), at(y0, x0 + 1)
+    v10, v11 = at(y0 + 1, x0), at(y0 + 1, x0 + 1)
+    return v00 * (1 - fx) * (1 - fy) + v01 * fx * (1 - fy) + v10 * (1 - fx) * fy + v11 * fx * fy

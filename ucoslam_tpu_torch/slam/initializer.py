@@ -1,4 +1,4 @@
-"""Map bootstrapping from two views or from markers.
+"""Map bootstrapping from two views, from depth or from markers.
 
 Port of `ucoslam_tpu/slam/initializer.py`. The keypoint path matches the
 reference frame against the current one, runs the F and H hypotheses,
@@ -10,9 +10,8 @@ the same hypotheses. `reseed_two_view` seeds a fresh map segment the same
 way after a long tracking loss. The marker path (`initialize_from_markers`)
 seeds a metric map from one unambiguous marker view, or from a marker seen
 in the reference and the current frame; `marker_metric_scale` gives a
-keypoint init its metric baseline from a marker seen in both frames.
-Initialization from depth raises NotImplementedError, naming its ROADMAP
-item.
+keypoint init its metric baseline from a marker seen in both frames. A
+stereo or RGB-D frame seeds a metric map alone (`initialize_from_depth`).
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ from ucoslam_tpu_torch.config import Params
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.geometry.twoview import estimate_two_view, reconstruct_two_view
 from ucoslam_tpu_torch.mapping.frame import Frame, fetch_to_host
-from ucoslam_tpu_torch.mapping.map import Map
+from ucoslam_tpu_torch.mapping.map import FLAG_STEREO, Map
 from ucoslam_tpu_torch.matching.matcher import match_frames
 from ucoslam_tpu_torch.slam.markermap import _reproj_corner_err, record_marker_observations, resolve_marker_slots
 
@@ -59,9 +58,34 @@ class MapInitializer:
         self.ref_frame = frame
 
     def initialize_from_depth(self, frame: Frame, world_map: Map) -> bool:
-        raise NotImplementedError(
-            "initialization from depth is not ported yet (ROADMAP.md, Queue 1 item 4: stereo and RGB-D)"
+        """One-frame bootstrap from per-keypoint depth (stereo/RGB-D): each
+        valid keypoint with depth becomes a FLAG_STEREO point, unprojected at
+        the identity pose, and the frame the first keyframe. False, the map
+        untouched, with fewer than 100 such keypoints. One device->host
+        fetch."""
+        depth, valid, cam_pts, octave, desc = fetch_to_host(
+            frame.depth, frame.valid, self.cam.unproject(frame.und_xy, frame.depth), frame.octave, frame.desc
         )
+        valid = valid & (depth > 0)
+        if int(valid.sum()) < 100:
+            return False
+        idx = np.nonzero(valid)[0]  # the camera is the world for the first keyframe
+        min_d, max_d = _min_max_dist(np.linalg.norm(cam_pts[idx], axis=1), octave[idx], self.params)
+        slots = world_map.add_points(
+            pos=cam_pts[idx],
+            normal=_view_normals(cam_pts[idx], np.eye(4, dtype=np.float32)),
+            desc=desc[idx],
+            min_dist=min_d,
+            max_dist=max_d,
+            flags=np.full(len(idx), FLAG_STEREO, np.int32),
+            creation_kf=0,
+        )
+        ids = np.full(frame.n, -1, np.int32)
+        ids[idx] = slots
+        dev = frame.und_xy.device
+        world_map.add_keyframe(frame.replace(ids=torch.from_numpy(ids).to(dev),
+                                             pose_f2g=torch.eye(4, dtype=torch.float32, device=dev)))
+        return True
 
     def initialize_from_markers(self, frame: Frame, world_map: Map):
         """Marker bootstrap with real scale: one frame when a marker is

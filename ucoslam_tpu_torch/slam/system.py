@@ -12,8 +12,9 @@ from two views at the dead-reckoned pose; after a loop correction the
 tracker adopts the corrected keyframe pose, and after a marker rescale of
 the map it rescales its own motion model. Markers initialize the map (one
 unambiguous frame, or two frames), or make a keypoint init metric (the
-hybrid init). Not ported, each raising NotImplementedError that names its
-ROADMAP item: initialization from depth, and the async mapper.
+hybrid init); a stereo or RGB-D frame initializes a metric map alone, or
+the frame stays uninitialized. Not ported, raising NotImplementedError that
+names its ROADMAP item: the async mapper.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 
 from ucoslam_tpu_torch.config import Mode, Params, TrackingState
 from ucoslam_tpu_torch.geometry.camera import CameraParams
-from ucoslam_tpu_torch.mapping.frame import Frame
+from ucoslam_tpu_torch.mapping.frame import Frame, fetch_to_host
 from ucoslam_tpu_torch.mapping.kfdatabase import KeyFrameDataBase
 from ucoslam_tpu_torch.mapping.map import Map
 from ucoslam_tpu_torch.slam.initializer import MapInitializer
@@ -238,8 +239,22 @@ class System:
             self.initializer.set_reference_frame(frame)
             self._log(frame, None, 0)
             return None
-        if bool((frame.depth > 0).any()):
-            self.initializer.initialize_from_depth(frame, self.map)
+        depth_any, n_kpts = fetch_to_host((frame.depth > 0).any(), frame.valid.sum())
+        if depth_any:
+            # a depth frame seeds a metric map alone; on failure no two-view
+            # attempt follows
+            if not self.initializer.initialize_from_depth(frame, self.map):
+                return None
+            self.manager.metric_locked = True
+            self.state = TrackingState.TRACKING
+            pose = np.eye(4, dtype=np.float32)
+            self._update_motion_model(pose)
+            self.manager.kf_counter = 1
+            self.last_kf_inliers = int(n_kpts)
+            self._last_kf_rot = pose[:3, :3].copy()
+            self._add_to_kfdb(self.map.keyframes.active_slots())
+            self._log(frame, pose, self.last_kf_inliers)
+            return pose
         if self.initializer.ref_frame is None:
             self.initializer.set_reference_frame(frame)
             self._log(frame, None, 0)

@@ -105,7 +105,10 @@ def _track_step(
         depth_all = bf = None
         if use_depth:
             depth_all = torch.cat([frame.depth, torch.zeros(MK_ROWS, device=dev)])
-            bf = cam.bl * cam.fx
+            # float32(fx) x float32(bl) in float32; the reference's
+            # cam.bl * cam.fx is the same product (JAX takes the Python bl
+            # as float32), e.g. exactly 125 for fx 500 and bl 0.25
+            bf = cam.bf
         res = motion_only_lm(
             pose0, X_all, uv_all, sig_all, valid_all, cam,
             depth=depth_all, bf=bf, iters=iters, rounds=rounds,

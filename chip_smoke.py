@@ -106,7 +106,58 @@ Phases (each prints one line or more; any failure raises and exits non-zero):
    The launch rules of phase 8 hold in every run. With `--frames 150` only
    (a)'s first pass runs, against the 150-frame references. Phase 9 runs
    even when phase 5 or 8 failed, and each kind even when the other
-   failed (the run then fails after them).
+   failed (the run then fails after them);
+10. the `.fbow` vocabulary (`data/vocab.fbow`, 16384 words): its digest
+   equal to the JAX package's reader's (`data/torch_port/vocab_jax.npz`);
+   `quantize_words` (4096-word chunks) of the JAX frontend's frame-30
+   descriptors equal on the card, on the CPU and to JAX's word ids, and of
+   the port's own frame-30 descriptors equal on card and CPU, timed, its
+   launches counted; the JAX package's mono map built with the vocabulary
+   (`mono_voc_map.slm`) swept as phase 6 (a) (relocalized and tracked >=
+   JAX's, ATE <= 1.2 x JAX + 0.002, centres within 2% of the depth extent);
+   `saveToFile` / `readFromFile` keep the vocabulary and the signature;
+11. global BA at scale on bench.py's synthetic problem (`ba_scale_problem`):
+   (a) 128 keyframes x 16384 points x 131072 observations through
+   `ba_solve(solver="auto")`: the point-major route, the cost never rising;
+   against the JAX package's solve (`ba128_jax.json`), the final cost no
+   more than 1% of the reference's cost reduction above it, nor that far
+   below the lowest of its routes, and the solution within twice the widest
+   gap between the reference's own routes in `ba_gap`'s measures (each
+   observation's reprojection, the points after a similarity alignment,
+   the rotations: with one camera fixed and little baseline per point, the
+   scale is free and the routes end 8% apart in it); the same solve cut to
+   half its LM steps must fail these gates (the control); ms per LM
+   iteration as bench.py takes it ((t(24) - t(6)) / 18, one stage); (c)
+   `solver="cg"` against the dense solve of the same problem (the cost
+   within 1% of the dense solve's reduction, the same ba_gap limits), both
+   timed; (b) 512 x 65536 x 524288: the point-major route, the cost falls,
+   ms per LM iteration, peak card memory, and the same of the CG and the
+   dense route; (d) the drifted ring map of
+   `ring_loop_scene(n_kf=128)`, saved, read back by `UcoSlam` and
+   `globalOptimization`: the point-major route, chi2 falls and ends no
+   higher than the reference's worst route, the card's chi2 within 1% of
+   the CPU's, and its poses and rotations within twice the gaps that two
+   last-bit nudges of the start give on the CPU (the map is a chain of
+   keyframes sharing points with their neighbours only: such a nudge
+   moves its poses by ~0.03 and its chi2 by up to 10%);
+12. the async mapper on the 60-frame mono scene, against the JAX package's
+   runs of it (`mono_async_jax.json`): a sequential pass; a
+   `runSequential=False` pass drained by `waitForFinished()` after every
+   frame (the worker maps every keyframe the tracker asks for, so the map
+   does not depend on the host's pace), held to JAX's drained pass
+   (tracked >= JAX's - 2, ATE <= 1.2 x JAX's + 0.002, keyframes within one
+   of JAX's, points within 10%); three free `runSequential=False` passes
+   (tracked >= 0.85 x 58 and no more frames lost after the init than a JAX
+   async run lost, ATE < 1.5 x JAX's sequential pass's + 0.01; after
+   `waitForFinished` not busy, >= 3 keyframes, > 100 points, and, against
+   JAX's free async passes, keyframes within one of theirs and points per
+   keyframe within 20%: a frame that needs a keyframe waits for an idle
+   worker, so the port's worker keeps pace as JAX's does on the CPU); a
+   planted worker error raised by `waitForFinished`;
+   `globalOptimization` drains the worker first; the launch rules of phase
+   5 in each pass, `process` ms p50 / p99 of
+   tracking frames in both modes. Phases 10-12 run in the 60-frame run
+   only, each even when an earlier one failed.
 
 The kernels' times are medians of CUDA-event timings of single launches
 (B2's batched record: of one batched launch, beside C single launches).
@@ -502,6 +553,126 @@ def add_ring_marker(m, marker: dict, kf_slot: int, f, cam):
                            marker["size"], cam)
         record_marker_observations(m, kf, fm, slots)
     return f.replace(markers=fm)
+
+
+def se3_exp_np(xi) -> "np.ndarray":
+    """SE3 exponential of xi = [rho, phi] in float64 numpy, -> float32 4x4."""
+    import numpy as np
+
+    xi = np.asarray(xi, np.float64)
+    rho, phi = xi[:3], xi[3:]
+    th = float(np.linalg.norm(phi))
+    Kx = np.array([[0.0, -phi[2], phi[1]], [phi[2], 0.0, -phi[0]], [-phi[1], phi[0], 0.0]])
+    if th < 1e-8:
+        R, Vj = np.eye(3) + Kx, np.eye(3) + 0.5 * Kx
+    else:
+        a, b = (1.0 - np.cos(th)) / th**2, (th - np.sin(th)) / th**3
+        R = np.eye(3) + np.sin(th) / th * Kx + a * Kx @ Kx
+        Vj = np.eye(3) + a * Kx + b * Kx @ Kx
+    T = np.eye(4)
+    T[:3, :3], T[:3, 3] = R, Vj @ rho
+    return T.astype(np.float32)
+
+
+#: the camera of ba_scale_problem (fx, fy, cx, cy) and its bf
+BA_CAMERA, BA_BF = (500.0, 500.0, 320.0, 240.0), 50.0
+
+
+def ba_scale_problem(n_kf=128, n_pt=16384, obs_per_pt=8, seed=7) -> dict:
+    """The synthetic BA problem of bench.py's global-BA benchmark
+    (`_make_ba_problem`), as numpy arrays from the same draws in the same
+    order: n_kf keyframes along a gentle curve, n_pt points each seen by
+    obs_per_pt consecutive keyframes (a sliding window), 0.5 px pixel noise,
+    poses perturbed by 0.01 (keyframe 0 fixed), points by 0.05."""
+    import numpy as np
+
+    fx, fy, cx, cy = BA_CAMERA
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-4, 4, (n_pt, 3)).astype(np.float32)
+    X[:, 2] = rng.uniform(6, 16, n_pt)
+    poses = np.stack([se3_exp_np(np.array(
+        [0.1 * np.sin(k * 0.1), 0.05 * np.cos(k * 0.13), 0.002 * k, 0.005 * np.sin(k * 0.2),
+         0.005 * np.cos(k * 0.1), 0.0], np.float32)) for k in range(n_kf)])
+    base = (np.arange(n_pt, dtype=np.int64) * n_kf // n_pt).astype(np.int32)
+    obs_cam2 = (base[:, None] + np.arange(obs_per_pt, dtype=np.int32)) % n_kf
+    T = poses[obs_cam2]  # (P, MO, 4, 4)
+    Xc = np.einsum("pmij,pj->pmi", T[:, :, :3, :3], X) + T[:, :, :3, 3]
+    uv = np.stack([fx * Xc[..., 0] / Xc[..., 2] + cx, fy * Xc[..., 1] / Xc[..., 2] + cy], -1).astype(np.float32)
+    uv += rng.normal(0, 0.5, uv.shape).astype(np.float32)
+    O = n_pt * obs_per_pt
+    poses_init = poses.copy()
+    xi_n = rng.normal(0, 0.01, (n_kf, 6)).astype(np.float32)
+    for k in range(1, n_kf):
+        poses_init[k] = se3_exp_np(xi_n[k]) @ poses[k]
+    X_init = X + rng.normal(0, 0.05, X.shape).astype(np.float32)
+    return dict(
+        cam_pose=poses_init, cam_fixed=np.arange(n_kf) == 0, cam_valid=np.ones(n_kf, bool), pt_pos=X_init,
+        pt_valid=np.ones(n_pt, bool), obs_cam=obs_cam2.reshape(-1).astype(np.int32),
+        obs_pt=np.repeat(np.arange(n_pt, dtype=np.int32), obs_per_pt), obs_uv=uv.reshape(O, 2),
+        obs_sigma2=np.ones(O, np.float32), obs_depth=np.zeros(O, np.float32), obs_valid=np.ones(O, bool),
+        pt_obs=np.arange(O, dtype=np.int32).reshape(n_pt, obs_per_pt),
+    )
+
+
+def ba_gap(a: tuple, b: tuple, arrays: dict) -> dict:
+    """How far the BA solution a = (cam_pose, pt_pos) of ba_scale_problem's
+    arrays lies from b, in measures its free gauge cannot swamp (one fixed
+    camera leaves the scale free, and the routes of one solver end that
+    far apart along it): `reprojection_p99`, the 99th percentile over the
+    observations of the distance (px) between the residual a and b give it;
+    `point_p50` / `point_p99`, per point the distance from b's after a's
+    cameras and points are brought onto b's by the best similarity
+    (Umeyama), over its distance from b's first camera; `rotation`, the
+    largest entry of the cameras' rotation differences (the fixed camera
+    holds the rotation)."""
+    import numpy as np
+
+    fx, fy, cx, cy = BA_CAMERA
+
+    def residual(pose, pts):
+        T, X = pose.astype(np.float64)[arrays["obs_cam"]], pts.astype(np.float64)[arrays["obs_pt"]]
+        Xc = np.einsum("oij,oj->oi", T[:, :3, :3], X) + T[:, :3, 3]
+        return np.stack([fx * Xc[:, 0] / Xc[:, 2] + cx, fy * Xc[:, 1] / Xc[:, 2] + cy], -1) - arrays["obs_uv"]
+
+    def centers(pose):
+        pose = pose.astype(np.float64)
+        return -np.einsum("kji,kj->ki", pose[:, :3, :3], pose[:, :3, 3])
+
+    (pa, xa), (pb, xb) = [(np.asarray(p), np.asarray(x)) for p, x in (a, b)]
+    src, dst = np.concatenate([centers(pa), xa]), np.concatenate([centers(pb), xb]).astype(np.float64)
+    ms, md = src.mean(0), dst.mean(0)
+    U, S, Vt = np.linalg.svd((dst - md).T @ (src - ms) / len(src))
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ D @ Vt
+    scale = np.trace(np.diag(S) @ D) / ((src - ms) ** 2).sum(1).mean()
+    moved = scale * (xa.astype(np.float64) - ms) @ R.T + md
+    rel = np.linalg.norm(moved - xb, axis=1) / np.linalg.norm(xb - centers(pb)[0], axis=1)
+    reproj = np.linalg.norm(residual(pa, xa) - residual(pb, xb), axis=1)
+    return dict(reprojection_p99=float(np.percentile(reproj, 99)), point_p50=float(np.percentile(rel, 50)),
+                point_p99=float(np.percentile(rel, 99)), rotation=float(np.abs(pa[:, :3, :3] - pb[:, :3, :3]).max()))
+
+
+def ba_gap_failures(gap: dict, spread: dict) -> list[str]:
+    """The measures of ba_gap past twice the widest of the reference's
+    route pairs' (`spread`: pair -> ba_gap)."""
+    return [k for k, v in gap.items() if v > 2 * max(pair[k] for pair in spread.values())]
+
+
+def ba_problem_on(arrays: dict, device):
+    """The port's BAProblem of ba_scale_problem's arrays on `device`, with its
+    camera->observation table. -> (problem, camera)."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.geometry.camera import CameraParams
+    from ucoslam_tpu_torch.optim.ba import BAProblem, _build_cam_obs
+
+    def t(a):
+        a = np.ascontiguousarray(a)
+        return torch.from_numpy(a.astype(np.int64) if a.dtype == np.int32 else a).to(device)
+
+    problem = BAProblem(**{k: t(v) for k, v in arrays.items()}, bf=BA_BF,
+                        cam_obs=t(_build_cam_obs(arrays["obs_cam"], arrays["cam_pose"].shape[0])))
+    return problem, CameraParams.create(*BA_CAMERA)
 
 
 def b2_batch_inputs(device, C: int, B: int, seed: int = 100):
@@ -1074,9 +1245,11 @@ def reset_counts() -> None:
     match_kernel.launches = lm_kernel.launches = lm_kernel.batched_launches = 0
 
 
-def reloc_sweep(scene, brute_force: bool) -> dict:
-    """Phase 6 (a) or (b): the JAX map localized in reverse, resetTracker()
-    before each of its reset frames, held to the JAX package's same sweep."""
+def reloc_sweep(scene, brute_force: bool, map_path: str = MAP_PATH, jax_ref: dict | None = None,
+                tag: str = "6 reloc") -> dict:
+    """Phase 6 (a) or (b), or phase 10's sweep: a JAX map localized in
+    reverse, resetTracker() before each of its reset frames, held to the JAX
+    package's same sweep (`jax_ref`, phase 6's by default)."""
     import numpy as np
     import torch
     from ucoslam_tpu_torch import Mode
@@ -1084,10 +1257,10 @@ def reloc_sweep(scene, brute_force: bool) -> dict:
     from ucoslam_tpu_torch.config import TrackingState
 
     ref, cam, seq, images = scene
-    jax_ref = recovery_ref("reloc_bf" if brute_force else "reloc")
+    jax_ref = jax_ref or recovery_ref("reloc_bf" if brute_force else "reloc")
     reset_frames = set(jax_ref["reset_frames"])
     slam = UcoSlam(device="cuda")
-    slam.readFromFile(MAP_PATH, cam)
+    slam.readFromFile(map_path, cam)
     slam.setMode(Mode.LOCALIZATION)
     system = slam._system
     if brute_force:
@@ -1114,7 +1287,7 @@ def reloc_sweep(scene, brute_force: bool) -> dict:
     dev = max(np.linalg.norm(camera_center(poses[i]) - camera_center(ref_poses[i])) for i in poses if i in ref_poses)
     tol = 0.02 * ref["depth_extent"]
     what = "(b) brute force" if brute_force else "(a) BoW"
-    print(f"[6 reloc] {what}: relocalized={relocalized}/{len(reset_frames)} (jax {jax_ref['relocalized']}) "
+    print(f"[{tag}] {what}: relocalized={relocalized}/{len(reset_frames)} (jax {jax_ref['relocalized']}) "
           f"tracked={len(poses)} (jax {jax_ref['tracked']}) ate={ate:.6f} (jax {jax_ref['ate']:.6f}) "
           f"max_centre_dev={dev:.6f} (tol {tol:.6f}) relocalizations={tracker.n_relocalizations} "
           f"attempts={tracker.n_attempts} launches={launches} process_ms_median: reloc={np.median(t_reloc):.3f} "
@@ -1130,7 +1303,7 @@ def reloc_sweep(scene, brute_force: bool) -> dict:
     else:  # one batched launch per relocalization with a candidate
         check(1 <= launches["B2_batched"] <= tracker.n_relocalizations
               and launches["B2"] == 2 * tracker.n_attempts + launches["B2_batched"], f"{what}: B2 launches {launches}")
-    return dict(launches=launches, reloc_ms=float(np.median(t_reloc)), track_ms=float(np.median(t_track)))
+    return dict(launches=launches, reloc_ms=float(np.median(t_reloc)), track_ms=float(np.median(t_track)), slam=slam)
 
 
 def slam_frames(params, cam, images, skip=()) -> dict:
@@ -1788,6 +1961,411 @@ def phase_depth(kind: str, frames: int, workdir: str) -> dict:
     return dict(launches=launches, b2=b2)
 
 
+#: phase 10: the JAX package's mono map built with data/vocab.fbow, its sweep
+#: with resetTracker() at phase 6's frames, and the vocabulary's digest
+#: (tools/port/make_reference_map.py --voc auto)
+VOC_MAP_PATH = os.path.join(HERE, "data", "torch_port", "mono_voc_map.slm")
+VOC_REF_PATHS = tuple(os.path.join(HERE, "data", "torch_port", n) for n in ("mono_voc_reloc_jax.json", "vocab_jax.npz"))
+
+
+def vocab_sha256(v) -> str:
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for a in (v.desc, v.weight, v.word_id):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def phase_vocabulary(scene, workdir: str) -> dict:
+    """Phase 10 -> the kernels' launches on its main path, and the word
+    search's record."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.api import UcoSlam
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.features.frame_extractor import FrameExtractor
+    from ucoslam_tpu_torch.io.fbow import default_vocab_path, load_fbow
+    from ucoslam_tpu_torch.io.serialize import load_map_meta
+    from ucoslam_tpu_torch.mapping.frame import tensor_from_numpy
+    from ucoslam_tpu_torch.mapping.kfdatabase import quantize_words
+
+    ref, cam, seq, images = scene
+    reloc_path, digest_path = VOC_REF_PATHS
+    with open(reloc_path) as f:
+        jax_reloc = json.load(f)
+    jax = np.load(digest_path)
+    v = load_fbow(default_vocab_path())
+    sha = vocab_sha256(v)
+    print(f"[10 vocab] {default_vocab_path()}: words={len(v.desc)} (jax {int(jax['n_words'])}) k={v.k} "
+          f"(jax {int(jax['k'])}) sha256={sha[:16]} (jax {str(jax['sha256'])[:16]})")
+    check(len(v.desc) == int(jax["n_words"]) == 16384 and v.k == int(jax["k"]) and sha == str(jax["sha256"]),
+          "the vocabulary differs from the JAX package's")
+    vocab_card, vocab_cpu = tensor_from_numpy(v.desc, "cuda"), tensor_from_numpy(v.desc, "cpu")
+    # the JAX frontend's frame-30 descriptors: card, CPU and JAX's word ids
+    desc_j = jax["desc"]
+    w_card = quantize_words(tensor_from_numpy(desc_j, "cuda"), vocab_card).cpu().numpy()
+    w_cpu = quantize_words(tensor_from_numpy(desc_j, "cpu"), vocab_cpu).numpy()
+    # the port's own frontend on frame 30, card and CPU on the same descriptors
+    params = Params.from_dict(load_map_meta(VOC_MAP_PATH)["params"])
+    f = FrameExtractor(params, cam, "cuda").process(images[FRONTEND_FRAME], FRONTEND_FRAME)
+    own_card = quantize_words(f.desc, vocab_card).cpu().numpy()
+    own_cpu = quantize_words(f.desc.cpu(), vocab_cpu).numpy()
+    ms = median_ms(lambda: quantize_words(f.desc, vocab_card), 20)
+    launches = count_launches(lambda: quantize_words(f.desc, vocab_card))
+    n = f.desc.shape[0]
+    # bytes: descriptors and centroids read once, ids written; operations per
+    # (descriptor, word) pair as B1's inside its gate: 8 XOR, 7 adds and the
+    # minimum's compare at the issue rate, and 8 popcounts
+    pairs = n * len(v.desc)
+    bound_ms, bound_by = bound_of(32 * (n + len(v.desc)) + 8 * n, 16 * pairs / ISSUE_PER_S + 8 * pairs / POPC_PER_S)
+    print(f"[10 vocab] quantize_words at frame {FRONTEND_FRAME}'s {n} descriptors x {len(v.desc)} words: "
+          f"JAX's descriptors card==cpu {np.array_equal(w_card, w_cpu)} ==jax {np.array_equal(w_card, jax['words'])}; "
+          f"the port's own card==cpu {np.array_equal(own_card, own_cpu)}; ms={ms:.4f} launches={launches} "
+          f"bound_ms={bound_ms:.6f} ({bound_by})")
+    check(np.array_equal(w_card, w_cpu) and np.array_equal(w_card, jax["words"]),
+          "word ids of JAX's frame-30 descriptors differ (card, CPU, JAX)")
+    check(np.array_equal(own_card, own_cpu), "the port's frame-30 word ids differ on card and CPU")
+
+    # the JAX vocabulary map's sweep with resetTracker() at phase 6's frames
+    r = reloc_sweep(scene, False, map_path=VOC_MAP_PATH, jax_ref=jax_reloc, tag="10 vocab sweep")
+    slam = r.pop("slam")
+    kfdb = slam._system.manager.kfdb
+    check(kfdb.vocab.shape[0] == 16384 and not kfdb.dummy, "the checkpoint's vocabulary was not restored")
+    sig = slam.getSignatureStr()
+    path = os.path.join(workdir, "voc_map.slm")
+    slam.saveToFile(path)
+    back = UcoSlam(device="cuda")
+    back.readFromFile(path, cam)
+    same = torch.equal(back._system.manager.kfdb.vocab, kfdb.vocab) and torch.equal(
+        back._system.manager.kfdb.weights, kfdb.weights)
+    print(f"[10 vocab] saveToFile/readFromFile: vocabulary kept {same} signature {sig} again {back.getSignatureStr()}")
+    check(same and back.getSignatureStr() == sig, "the checkpoint lost the vocabulary or the signature")
+    return dict(launches=r["launches"], quantize=dict(ms=ms, launches=launches, bound_ms=bound_ms, n=n))
+
+
+#: phase 11: JAX's global BA of ba_scale_problem (tools/port/ba_reference.py)
+BA_REF_PATHS = tuple(os.path.join(HERE, "data", "torch_port", n) for n in ("ba128_jax.json", "ba128_jax.npz"))
+
+
+def ba_ms_per_iteration(problem, cam, solver: str) -> tuple[float, object]:
+    """bench.py's `_ba_iter_time`: (t(24) - t(6)) / 18 of one-stage solves,
+    each ended by a device synchronize, after a warm-up of each (the
+    point-major tables are built once and cached). -> (ms, the 24-step result)."""
+    import torch
+    from ucoslam_tpu_torch.optim.ba import ba_solve
+
+    def run(iters):
+        t0 = time.perf_counter()
+        r = ba_solve(problem, cam, iters=iters, stages=1, solver=solver)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, r
+
+    run(6), run(24)
+    (t_lo, _), (t_hi, r) = run(6), run(24)
+    return 1e3 * (t_hi - t_lo) / 18, r
+
+
+def ring_ba_on(device: str, workdir: str, nudge: int | None = None) -> dict:
+    """The drifted ring map of ring_loop_scene(n_kf=128), saved, read back by
+    UcoSlam and globally optimized, on one device; with `nudge`, the scene's
+    points first moved in their last bits (relative normal noise of 1e-7,
+    seeded by `nudge`)."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.api import UcoSlam
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.io.serialize import save_map
+
+    params = Params().replace(maxDescDistance=60.0, detectMarkers=False, KFMinConfidence=0.4)
+    scene = ring_loop_scene(n_kf=128)
+    if nudge is not None:
+        noise = 1e-7 * np.random.default_rng(nudge).normal(size=scene["pts"].shape)
+        scene["pts"] = (scene["pts"] * (1 + noise)).astype(scene["pts"].dtype)
+    m, det, _, _ = ring_loop_map(scene, params, device)
+    path = os.path.join(workdir, f"ring128_{device}.slm")
+    save_map(m, path)
+    slam = UcoSlam(device=device)
+    slam.readFromFile(path, det.cam)
+    before = slam.map.global_reproj_chi2(det.cam)
+    t0 = time.perf_counter()
+    slam.globalOptimization()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(before=before, after=slam.map.global_reproj_chi2(det.cam), seconds=seconds,
+                poses=slam.map.h("kf_pose")[slam.map.keyframes.active_slots()].copy(), n_kf=slam.map.n_keyframes)
+
+
+def ring_gap(a: dict, b: dict) -> dict:
+    """Two ring_ba_on results apart: chi2, the largest keyframe-pose entry
+    and the largest rotation entry."""
+    import numpy as np
+
+    return dict(chi2=abs(a["after"] - b["after"]), pose=float(np.abs(a["poses"] - b["poses"]).max()),
+                rotation=float(np.abs(a["poses"][:, :3, :3] - b["poses"][:, :3, :3]).max()))
+
+
+def phase_ba_scale(workdir: str) -> dict:
+    """Phase 11: global BA at 128 and 512 keyframes, point-major, CG and
+    dense, and globalOptimization on a 128-keyframe map.
+
+    Bundle adjustment of these problems is ill-conditioned: one fixed
+    camera leaves the scale free, and the reference's own routes end 8% apart
+    in scale and 40 map units apart in the worst point. So the solutions are
+    held in measures the gauge cannot swamp (ba_gap), each within twice the
+    widest gap between the reference's routes; the final cost within 1% of
+    the reference's cost reduction above its "auto" solve, and no lower than
+    1% of it below its lowest route. The port's own solve cut to half its LM
+    steps is a control that these gates must reject. On the ring map, card
+    and CPU poses are held to twice the spread that last-bit nudges of the
+    start give on the CPU, and their chi2 within 1%."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.optim import schur_pm
+    from ucoslam_tpu_torch.optim.ba import ba_solve
+
+    with open(BA_REF_PATHS[0]) as f:
+        jax_ref = json.load(f)
+    jax_out = np.load(BA_REF_PATHS[1])
+    spread = {pair: {k: v for k, v in gap.items() if k != "cost"} for pair, gap in jax_ref["spread"].items()}
+    c0, jc = jax_ref["cost_history"][0], jax_ref["cost_history"][-1]
+    cost_band = (min([jc] + [g["cost"] for g in jax_ref["spread"].values()]) - 0.01 * (c0 - jc), jc + 0.01 * (c0 - jc))
+    out = {}
+    with contextlib.ExitStack() as stack:
+        routes = []
+        stack.enter_context(patched(schur_pm, "pm_staged_lm", lambda inner, *a, **k: routes.append(1) or inner(*a, **k)))
+
+        def judge(r, arrays, ref, band):
+            """-> (ba_gap of r from ref, final cost, the failed gates)."""
+            gap = ba_gap((r.cam_pose.cpu().numpy(), r.pt_pos.cpu().numpy()), ref, arrays)
+            cost = float(r.cost_history[-1])
+            return gap, cost, ba_gap_failures(gap, spread) + ([] if band[0] <= cost <= band[1] else ["cost"])
+
+        # (a) 128 keyframes x 16384 points x 131072 observations
+        arrays = ba_scale_problem(128, 16384, 8)
+        problem, cam = ba_problem_on(arrays, "cuda")
+        ms_pm, r = ba_ms_per_iteration(problem, cam, "auto")
+        costs = r.cost_history.cpu().numpy()
+        jax_sol = (jax_out["cam_pose"], jax_out["pt_pos"])
+        gap, cost, failed = judge(r, arrays, jax_sol, cost_band)
+        limits = {k: 2 * max(pair[k] for pair in spread.values()) for k in gap}
+        print(f"[11 ba] (a) 128x16384x131072 auto: point-major solves={len(routes)} cost {costs[0]:.3f} -> {cost:.3f} "
+              f"(jax {jc:.3f}; band {cost_band[0]:.3f} .. {cost_band[1]:.3f}) vs jax {json.dumps(gap)} (limits "
+              f"{json.dumps(limits)}) ms_per_lm_iter={ms_pm:.3f}")
+        check(len(routes) == 4, f"the 128-keyframe problem took the point-major route {len(routes)} of 4 times")
+        check(bool(np.all(np.diff(costs) <= 0)), "the point-major cost rose")
+        check(not failed, f"the 128-keyframe solve fails {failed} against the JAX package's")
+        # the control: the same solve cut to half its LM steps must fail the gates
+        half = ba_solve(problem, cam, iters=len(costs) // 2, stages=1, solver="auto")
+        c_gap, c_cost, c_failed = judge(half, arrays, jax_sol, cost_band)
+        print(f"[11 ba] (a) control, {len(costs) // 2} LM steps: cost {c_cost:.3f} vs jax {json.dumps(c_gap)} "
+              f"rejected by {c_failed}")
+        check(bool(c_failed), "the gates passed the solve cut to half its LM steps")
+        # (c) solver="cg" and the dense solve of the same problem
+        n_pm = len(routes)
+        ms_cg, rc = ba_ms_per_iteration(problem, cam, "cg")
+        ms_dense, rd = ba_ms_per_iteration(problem, cam, "dense")
+        dense_cost = float(rd.cost_history[-1])
+        dense_band = (dense_cost - 0.01 * (c0 - dense_cost), dense_cost + 0.01 * (c0 - dense_cost))
+        gap_c, cg_cost, failed_c = judge(rc, arrays, (rd.cam_pose.cpu().numpy(), rd.pt_pos.cpu().numpy()), dense_band)
+        print(f"[11 ba] (c) cg vs dense at 128: cost {cg_cost:.3f} vs {dense_cost:.3f} gap {json.dumps(gap_c)} (limits "
+              f"{json.dumps(limits)}) ms_per_lm_iter point-major={ms_pm:.3f} cg={ms_cg:.3f} dense={ms_dense:.3f}")
+        check(len(routes) == n_pm, "solver='cg' or 'dense' took the point-major route")
+        check(not failed_c, f"CG and dense part past the reference's routes: {failed_c}")
+        out["ba128"] = dict(point_major=ms_pm, cg=ms_cg, dense=ms_dense)
+        del problem, r, rc, rd, half
+        # (b) 512 keyframes x 65536 points x 524288 observations
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        problem, cam = ba_problem_on(ba_scale_problem(512, 65536, 8), "cuda")
+        n_pm = len(routes)
+        ms_512, r = ba_ms_per_iteration(problem, cam, "auto")
+        costs = r.cost_history.cpu().numpy()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        total = torch.cuda.get_device_properties(0).total_memory / 2**30
+        print(f"[11 ba] (b) 512x65536x524288 auto: point-major solves={len(routes) - n_pm} cost {costs[0]:.3f} -> "
+              f"{costs[-1]:.3f} ms_per_lm_iter={ms_512:.3f} peak_memory_gib={peak:.3f} of {total:.1f}")
+        check(len(routes) - n_pm == 4, "the 512-keyframe problem did not take the point-major route")
+        check(costs[-1] < costs[0] and np.isfinite(costs).all(), "the 512-keyframe cost did not fall")
+        out["ba512"] = dict(point_major=ms_512, peak_gib=peak)
+        # the other two routes at 512, timed beside it (which route is fastest on this card)
+        for solver in ("cg", "dense"):
+            del r
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms, r = ba_ms_per_iteration(problem, cam, solver)
+            costs = r.cost_history.cpu().numpy()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"[11 ba] (b) 512x65536x524288 {solver}: cost {costs[0]:.3f} -> {costs[-1]:.3f} ms_per_lm_iter={ms:.3f} "
+                  f"peak_memory_gib={peak:.3f}")
+            check(costs[-1] < costs[0] and np.isfinite(costs).all(), f"the 512-keyframe {solver} cost did not fall")
+            out["ba512"].update({solver: ms, f"{solver}_peak_gib": peak})
+        del problem, r
+        torch.cuda.empty_cache()
+        # (d) globalOptimization on the 128-keyframe ring map, card and CPU, and
+        # the CPU's own spread under two last-bit nudges of the start
+        n_pm = len(routes)
+        card = ring_ba_on("cuda", workdir)
+        check(len(routes) - n_pm == 1, "globalOptimization of the ring map did not take the point-major route")
+        cpu = ring_ba_on("cpu", workdir)
+        nudged = [ring_gap(ring_ba_on("cpu", workdir, nudge=seed), cpu) for seed in (0, 1)]
+        d_ring = ring_gap(card, cpu)
+        ring_limits = {k: 2 * max(g[k] for g in nudged) for k in ("pose", "rotation")}
+        ring_limits["chi2"] = 0.01 * cpu["after"]
+        jax_chi2 = jax_ref["ring128"]["chi2"]
+        print(f"[11 ba] (d) ring map of {card['n_kf']} keyframes: globalOptimization chi2 {card['before']:.6f} -> "
+              f"{card['after']:.6f} (cpu {cpu['after']:.6f}; jax by route {json.dumps(jax_chi2)}) card vs cpu "
+              f"{json.dumps(d_ring)} (limits {json.dumps(ring_limits)}; the nudges' {json.dumps(nudged)}) "
+              f"seconds={card['seconds']:.3f} (cpu {cpu['seconds']:.3f})")
+        check(card["after"] < card["before"], "the ring map's chi2 did not fall")
+        check(card["after"] <= max(jax_chi2.values()), "the ring map's chi2 ends above every route of the reference's")
+        check(all(d_ring[k] <= ring_limits[k] for k in d_ring), f"card and CPU ring results part past {ring_limits}: {d_ring}")
+    out["ring_s"] = card["seconds"]
+    return out
+
+
+#: phase 12: the JAX package's sequential, drained and free async passes of
+#: the 60-frame mono scene (tools/port/make_reference_map.py --async-trials 3)
+ASYNC_REF_PATH = os.path.join(HERE, "data", "torch_port", "mono_async_jax.json")
+
+
+def async_pass(params, cam, images, drained: bool = False) -> dict:
+    """A SLAM pass of UcoSlam(device="cuda") over the images, each `process`
+    timed on the host clock (the pose it returns was fetched, so its work
+    is done; no extra synchronize, which would wait for the worker's work
+    too), the frames that inserted a keyframe inline apart; with `drained`,
+    a `waitForFinished()` after every frame."""
+    from ucoslam_tpu_torch.api import UcoSlam
+
+    slam = UcoSlam(device="cuda")
+    slam.setParams(None, params, cam)
+    mgr = slam._system.manager
+    poses, t_track, t_kf = {}, [], []
+    with contextlib.ExitStack() as stack:
+        calls = count_calls(stack)
+        reset_counts()
+        for i, img in enumerate(images):
+            before, inserted = slam.map.n_keyframes, mgr.n_insertions
+            t0 = time.perf_counter()
+            pose = slam.process(img, fseq=i)
+            ms = 1e3 * (time.perf_counter() - t0)
+            if before > 0:
+                (t_kf if not mgr.is_async and mgr.n_insertions > inserted else t_track).append(ms)
+            if pose is not None:
+                poses[i] = pose
+            if drained:
+                slam.waitForFinished()
+        slam.waitForFinished()
+        launches = counts()
+    return dict(slam=slam, poses=poses, t_track=t_track, t_kf=t_kf, launches=launches,
+                attempts=slam._system.tracker.n_attempts, insertions=mgr.n_insertions, **calls)
+
+
+def lost_after_init(tracked: int, init_frame: int, n_frames: int) -> int:
+    return n_frames - init_frame - tracked
+
+
+def phase_async(scene) -> dict:
+    """Phase 12 -> the kernels' launches on its main path, and the times."""
+    import numpy as np
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.io.serialize import load_map_meta
+
+    ref, cam, seq, images = scene
+    with open(ASYNC_REF_PATH) as f:
+        jax_ref = json.load(f)
+    n = len(images)
+    params = Params.from_dict(load_map_meta(MAP_PATH)["params"])
+    pct = lambda ts, q: float(np.percentile(ts, q))
+    seq_run = async_pass(params, cam, images)
+    check_slam_launches(seq_run, "sequential")
+    launches = dict(seq_run["launches"])
+    print(f"[12 async] sequential: tracked={len(seq_run['poses'])} ate={ate_of(seq_run['poses'], seq):.6f} keyframes="
+          f"{seq_run['slam'].map.n_keyframes} points={seq_run['slam'].map.n_points} (jax {json.dumps(jax_ref['sequential'])}) "
+          f"process_ms tracking p50={pct(seq_run['t_track'], 50):.3f} "
+          f"p99={pct(seq_run['t_track'], 99):.3f} (n={len(seq_run['t_track'])}) keyframe p50="
+          f"{pct(seq_run['t_kf'], 50):.3f} (n={len(seq_run['t_kf'])}) all p50="
+          f"{pct(seq_run['t_track'] + seq_run['t_kf'], 50):.3f} p99={pct(seq_run['t_track'] + seq_run['t_kf'], 99):.3f}")
+    seq_run["slam"].clear()
+    params_async = params.replace(runSequential=False)
+    # the drained pass against JAX's drained pass
+    run = async_pass(params_async, cam, images, drained=True)
+    check_slam_launches(run, "drained async")
+    launches = {k: c + run["launches"][k] for k, c in launches.items()}
+    jd, slam = jax_ref["drained"], run["slam"]
+    ate = ate_of(run["poses"], seq)
+    print(f"[12 async] drained: tracked={len(run['poses'])} ate={ate:.6f} keyframes={slam.map.n_keyframes} points="
+          f"{slam.map.n_points} insertions={run['insertions']} (jax {json.dumps(jd)})")
+    check(slam._system.manager.is_async, "runSequential=False did not start the worker")
+    check(len(run["poses"]) >= jd["tracked"] - 2, "the drained pass tracked over 2 frames fewer than JAX's")
+    check(ate <= 1.2 * jd["ate"] + 0.002, f"the drained pass's ATE {ate} over the limit")
+    check(abs(slam.map.n_keyframes - jd["keyframes"]) <= 1, "the drained pass's keyframes part from JAX's")
+    check(abs(slam.map.n_points - jd["points"]) <= 0.1 * jd["points"], "the drained pass's points part from JAX's")
+    slam.map.check_consistency()
+    slam.clear()
+    # three free passes: the ATE bound from JAX's sequential pass; the map
+    # against JAX's free async passes (a keyframe waits for an idle worker,
+    # so the port's worker keeps pace as JAX's does on the CPU)
+    bound = 1.5 * jax_ref["sequential"]["ate"] + 0.01
+    free = jax_ref["trials"]
+    lost = max(lost_after_init(r["tracked"], r["init_frame"], n) for r in free)
+    kf_range = (min(r["keyframes"] for r in free) - 1, max(r["keyframes"] for r in free) + 1)
+    ppk_range = (0.8 * min(r["points"] / r["keyframes"] for r in free), 1.2 * max(r["points"] / r["keyframes"] for r in free))
+    print(f"[12 async] jax free async passes: {json.dumps(free)}")
+    t_all = []
+    for trial in range(3):
+        run = async_pass(params_async, cam, images)
+        slam, mgr = run["slam"], run["slam"]._system.manager
+        check(mgr.is_async, "runSequential=False did not start the worker")
+        check_slam_launches(run, f"async trial {trial}")
+        launches = {k: c + run["launches"][k] for k, c in launches.items()}
+        ate = ate_of(run["poses"], seq)
+        t_all += run["t_track"]
+        lost_here = lost_after_init(len(run["poses"]), min(run["poses"]), n)
+        print(f"[12 async] trial {trial}: tracked={len(run['poses'])} lost_after_init={lost_here} (jax <= {lost}) "
+              f"ate={ate:.6f} (bound {bound:.6f}) keyframes={slam.map.n_keyframes} points={slam.map.n_points} "
+              f"busy={mgr.busy()} insertions={run['insertions']} process_ms p50={pct(run['t_track'], 50):.3f} "
+              f"p99={pct(run['t_track'], 99):.3f} launches={run['launches']}")
+        check(len(run["poses"]) >= 0.85 * (n - 2), f"async trial {trial} tracked {len(run['poses'])}")
+        check(lost_here <= lost, f"async trial {trial} lost {lost_here} frames after its init")
+        check(ate < bound, f"async trial {trial}: ATE {ate} over {bound}")
+        check(not mgr.busy() and slam.map.n_keyframes >= 3 and slam.map.n_points > 100,
+              f"async trial {trial}: after waitForFinished busy={mgr.busy()} keyframes={slam.map.n_keyframes}")
+        check(kf_range[0] <= slam.map.n_keyframes <= kf_range[1],
+              f"async trial {trial}: {slam.map.n_keyframes} keyframes, JAX's free passes {kf_range}")
+        check(ppk_range[0] <= slam.map.n_points / slam.map.n_keyframes <= ppk_range[1],
+              f"async trial {trial}: {slam.map.n_points} points on {slam.map.n_keyframes} keyframes, JAX's free "
+              f"passes {ppk_range[0]:.1f} .. {ppk_range[1]:.1f} a keyframe")
+        slam.map.check_consistency()
+        if trial == 2:
+            # a worker error is raised by waitForFinished; globalOptimization drains first
+            mgr._worker_error = RuntimeError("planted")
+            try:
+                slam.waitForFinished()
+                raised = False
+            except RuntimeError as e:
+                raised = str(e) == "planted"
+            order = []
+            with patched(mgr, "wait_idle", lambda inner: order.append("drain") or inner()):
+                from ucoslam_tpu_torch import api
+
+                with patched(api, "global_bundle_adjustment", lambda inner, *a, **k: order.append("ba") or inner(*a, **k)):
+                    slam.globalOptimization(n_iters=10)
+            print(f"[12 async] a planted worker error raised: {raised}; globalOptimization order {order}")
+            check(raised, "a worker error was not raised by waitForFinished")
+            check(order == ["drain", "ba"], f"globalOptimization did not drain the worker first: {order}")
+        slam.clear()
+    print(f"[12 async] process_ms over 3 trials: p50={pct(t_all, 50):.3f} p99={pct(t_all, 99):.3f} (n={len(t_all)}); "
+          f"sequential tracking frames p50={pct(seq_run['t_track'], 50):.3f} p99={pct(seq_run['t_track'], 99):.3f}")
+    return dict(launches=launches, ms=dict(
+        async_p50=pct(t_all, 50), async_p99=pct(t_all, 99),
+        seq_track_p50=pct(seq_run["t_track"], 50), seq_track_p99=pct(seq_run["t_track"], 99),
+        seq_all_p50=pct(seq_run["t_track"] + seq_run["t_kf"], 50), seq_all_p99=pct(seq_run["t_track"] + seq_run["t_kf"], 99)))
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1865,6 +2443,19 @@ def main(argv=None) -> int:
                 launches = {k: n + part["launches"][k] for k, n in launches.items()}
                 b2["launches_batched"] = b2.get("launches_batched", 0) + part["launches"]["B2_batched"]
                 b2.update(part.get("b2", {}))
+        if args.frames == 60:  # phases 10-12 run in the 60-frame run
+            for phase, run in (("10", lambda: phase_vocabulary(scene, workdir)), ("11", lambda: phase_ba_scale(workdir)),
+                               ("12", lambda: phase_async(scene))):
+                try:
+                    part = run()
+                except SmokeFailure as e:
+                    # no phase from 10 on depends on another: each still runs
+                    failed, part = failed or e, None
+                    print(f"[{phase}] FAILED: {e}")
+                lap(phase)
+                if part is not None and "launches" in part:
+                    launches = {k: n + part["launches"][k] for k, n in launches.items()}
+                    b2["launches_batched"] = b2.get("launches_batched", 0) + part["launches"]["B2_batched"]
     if failed is not None:
         raise failed
     print(f"[time] seconds by phase {json.dumps(seconds)} total={time.perf_counter() - t_start:.1f}")

@@ -250,18 +250,11 @@ def test_update_point_stats_on_card_is_repeatable(card):
             np.testing.assert_array_equal(a[k], want[k], err_msg=k)
 
 
-def test_ba_solve_dense_on_card_matches_cpu(card):
-    """The dense Schur LM on a map the port built from 29 oracle frames (5
-    keyframes), all keyframes, the two oldest fixed, the points seen by 3
-    or more, from perturbed points and poses: the card within 1e-4
-    (relative to the largest value) of the CPU, with the same bad
-    associations. The bound is held against the problem's own
-    conditioning: on the CPU, a start that differs in the last bits of its
-    points moves the solution by under 4e-5 (checked here; with the points
-    seen twice, or from fewer frames, the problem conditions too poorly
-    for the bound)."""
-    import dataclasses
-
+def _perturbed_map_problem():
+    """The BA problem of test_ba_solve_dense_on_card_matches_cpu: a map the
+    port built from 29 oracle frames (5 keyframes), all keyframes, the two
+    oldest fixed, the points seen by 3 or more, from perturbed points and
+    poses. -> (problem, camera, seed generator, point count)."""
     from ucoslam_tpu_torch.config import Params
     from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
     from ucoslam_tpu_torch.optim import ba
@@ -283,20 +276,137 @@ def test_ba_solve_dense_on_card_matches_cpu(card):
     pose = problem.cam_pose.numpy().copy()
     pose[free, :3, 3] += rng.normal(0, 0.01, (int(free.sum()), 3)).astype(np.float32)
     problem.cam_pose = torch.from_numpy(pose)
+    return problem, seq.cam, rng, len(pt_slots)
 
-    want = ba.ba_solve(problem, seq.cam, iters=10, stages=2)
-    nudge = torch.from_numpy((1 + 1e-7 * rng.normal(size=pt.shape)).astype(np.float32))
-    nudged = ba.ba_solve(dataclasses.replace(problem, pt_pos=problem.pt_pos * nudge), seq.cam, iters=10, stages=2)
-    assert float((nudged.pt_pos - want.pt_pos).abs().max()) < 4e-5
-    on_card = dataclasses.replace(problem, **{
-        f.name: getattr(problem, f.name).to(card)
+
+def _on(problem, device):
+    import dataclasses
+
+    return dataclasses.replace(problem, **{
+        f.name: getattr(problem, f.name).to(device)
         for f in dataclasses.fields(problem) if isinstance(getattr(problem, f.name), torch.Tensor)})
-    got = ba.ba_solve(on_card, seq.cam, iters=10, stages=2)
+
+
+def _assert_card_matches_cpu(got, want):
     for k in ("cam_pose", "pt_pos"):
         w = getattr(want, k)
-        assert float((getattr(got, k).cpu() - w).abs().max()) <= 1e-4 * float(w.abs().max()), k
-    assert torch.equal(got.obs_bad.cpu(), want.obs_bad)
-    assert len(pt_slots) > 200
+        d = float((getattr(got, k).cpu() - w).abs().max()) / float(w.abs().max())
+        assert d <= 1e-4, f"{k}: card and CPU {d:.3e} apart (relative); cost {got.cost_history[-1]} vs {want.cost_history[-1]}"
+    n = int((got.obs_bad.cpu() != want.obs_bad).sum())
+    assert n == 0, f"{n} bad associations differ"
+
+
+def test_ba_solve_dense_on_card_matches_cpu(card):
+    """The dense Schur LM on _perturbed_map_problem: the card within 1e-4
+    (relative to the largest value) of the CPU, with the same bad
+    associations. The bound is held against the problem's own
+    conditioning: on the CPU, a start that differs in the last bits of its
+    points moves the solution by under 4e-5 (checked here; with the points
+    seen twice, or from fewer frames, the problem conditions too poorly
+    for the bound)."""
+    import dataclasses
+
+    from ucoslam_tpu_torch.optim import ba
+
+    problem, cam, rng, n_pts = _perturbed_map_problem()
+    want = ba.ba_solve(problem, cam, iters=10, stages=2)
+    nudge = torch.from_numpy((1 + 1e-7 * rng.normal(size=problem.pt_pos.shape)).astype(np.float32))
+    nudged = ba.ba_solve(dataclasses.replace(problem, pt_pos=problem.pt_pos * nudge), cam, iters=10, stages=2)
+    assert float((nudged.pt_pos - want.pt_pos).abs().max()) < 4e-5
+    _assert_card_matches_cpu(ba.ba_solve(_on(problem, card), cam, iters=10, stages=2), want)
+    assert n_pts > 200
+
+
+def _padded_to_128(problem, cam):
+    """The problem with invalid, fixed camera slots up to 128 (where
+    solver="auto" takes the point-major route)."""
+    import dataclasses
+
+    extra = 128 - problem.cam_pose.shape[0]
+    pad = lambda x, v: torch.cat([x, x.new_full((extra,) + x.shape[1:], v)])
+    return dataclasses.replace(
+        problem, cam_pose=torch.cat([problem.cam_pose, torch.eye(4).expand(extra, 4, 4)]),
+        cam_fixed=pad(problem.cam_fixed, True), cam_valid=pad(problem.cam_valid, False),
+        cam_obs=pad(problem.cam_obs, -1)), cam
+
+
+@pytest.mark.parametrize("solver,iters,stages", [("auto", 10, 2), ("cg", 4, 1)])
+def test_point_major_and_cg_on_card_match_cpu(card, solver, iters, stages, monkeypatch):
+    """The point-major solve (the problem padded with invalid, fixed camera
+    slots to 128, so solver="auto" routes to it) and the matrix-free CG
+    solve of _perturbed_map_problem: the card within 1e-4 (relative) of the
+    CPU, the same bad associations. CG is held over its first 4 LM steps:
+    later, near the optimum, a step's acceptance turns on cost changes of
+    1e-6 relative, and card and CPU took different ones there (1.6e-4 apart
+    in points after 10 steps and 2 stages, costs within 4e-6)."""
+    import dataclasses
+
+    from ucoslam_tpu_torch.optim import ba, schur_pm
+
+    problem, cam = _padded_to_128(*_perturbed_map_problem()[:2])
+    routes = []
+    inner = schur_pm.pm_staged_lm
+    monkeypatch.setattr(schur_pm, "pm_staged_lm", lambda *a, **k: routes.append(1) or inner(*a, **k))
+    want = ba.ba_solve(problem, cam, iters=iters, stages=stages, solver=solver)
+    got = ba.ba_solve(_on(problem, card), cam, iters=iters, stages=stages, solver=solver)
+    assert routes == ([1, 1] if solver == "auto" else [])
+    _assert_card_matches_cpu(got, want)
+
+
+def test_cg_second_stage_on_card_matches_cpu(card):
+    """The CG solve's whole run, both stages, on _perturbed_map_problem with
+    every 40th observation moved 12 px (32 of 1100 then demoted by the
+    first stage): the card demotes the same observations as the CPU, and
+    ends at its cost and poses; its points are held to the spread that
+    last-bit nudges of the start give on the CPU (measured here, the
+    bound three times the widest of two). The second stage drops the
+    demoted observations, which leaves some points seen by one or two
+    keyframes: they move by up to 1.2e-2 (relative) under such nudges,
+    while the cost moves by under 1e-5 and the poses by under 1e-6."""
+    import dataclasses
+
+    from ucoslam_tpu_torch.optim import ba
+
+    problem, cam, _, _ = _perturbed_map_problem()
+    uv = problem.obs_uv.clone()
+    uv[::40] += 12.0
+    problem, cam = _padded_to_128(dataclasses.replace(problem, obs_uv=uv), cam)
+    solve = lambda p: ba.ba_solve(p, cam, iters=10, stages=2, solver="cg")
+    want = solve(problem)
+    rel = lambda a, b: float((a.cpu() - b).abs().max() / b.abs().max())
+    spread = 0.0
+    for seed in (0, 1):
+        nudge = 1 + 1e-7 * np.random.default_rng(seed).normal(size=problem.pt_pos.shape)
+        nudged = solve(dataclasses.replace(problem, pt_pos=problem.pt_pos * torch.from_numpy(nudge.astype(np.float32))))
+        assert torch.equal(nudged.obs_bad, want.obs_bad)
+        spread = max(spread, rel(nudged.pt_pos, want.pt_pos))
+    got = solve(_on(problem, card))
+    assert int(want.obs_bad.sum()) >= 25
+    n = int((got.obs_bad.cpu() != want.obs_bad).sum())
+    assert n == 0, f"{n} of {int(want.obs_bad.sum())} demotions differ"
+    c_got, c_want = float(got.cost_history[-1]), float(want.cost_history[-1])
+    assert abs(c_got - c_want) <= 3e-5 * c_want, (c_got, c_want)
+    assert rel(got.cam_pose, want.cam_pose) <= 1e-4
+    assert rel(got.pt_pos, want.pt_pos) <= max(1e-4, 3 * spread), (rel(got.pt_pos, want.pt_pos), spread)
+
+
+def test_quantize_words_card_equals_cpu(card):
+    """The 16384-word vocabulary's chunked word search: the card equal to the
+    CPU on 2048 seeded descriptors, words duplicated across chunk
+    boundaries among them (the lowest word wins on both)."""
+    from ucoslam_tpu_torch.io.fbow import default_vocab_path, load_fbow
+    from ucoslam_tpu_torch.mapping.frame import tensor_from_numpy
+    from ucoslam_tpu_torch.mapping.kfdatabase import quantize_words
+
+    v = load_fbow(default_vocab_path()).desc.copy()
+    v[4096], v[8192 + 5] = v[4095], v[5]
+    rng = np.random.default_rng(2)
+    desc = rng.integers(0, 2**32, (2048, 8), dtype=np.uint32)
+    desc[0], desc[1] = v[4095], v[5]
+    got = quantize_words(tensor_from_numpy(desc, card), tensor_from_numpy(v, card)).cpu()
+    want = quantize_words(tensor_from_numpy(desc, "cpu"), tensor_from_numpy(v, "cpu"))
+    assert torch.equal(got, want)
+    assert got[0] == 4095 and got[1] == 5
 
 
 @pytest.mark.parametrize("n_markers", [1, 4, 16])

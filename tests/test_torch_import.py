@@ -24,6 +24,7 @@ def test_port_import_leaves_jax_out():
         "import ucoslam_tpu_torch.markers.dictionary, ucoslam_tpu_torch.markers.native\n"
         "import ucoslam_tpu_torch.markers.ippe, ucoslam_tpu_torch.markers.detector, ucoslam_tpu_torch.slam.markermap\n"
         "import ucoslam_tpu_torch.io.stereorectify, ucoslam_tpu_torch.features.frame_extractor\n"
+        "import ucoslam_tpu_torch.io.fbow, ucoslam_tpu_torch.optim.schur_pm, ucoslam_tpu_torch.slam.system\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'ucoslam_tpu' not in sys.modules, 'ucoslam_tpu imported'\n"

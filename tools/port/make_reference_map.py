@@ -59,6 +59,29 @@ ATE without scale alignment, the init's frame and keyframes, keyframes,
 points, the signature, the poses), the reverse LOCALIZATION sweep of the
 checkpoint, and the share of frame FRONTEND_FRAME's keypoints that got a
 depth. The JSON's camera carries `bl` and `rgb_depthscale`.
+
+`--voc PATH` (`auto`: the repository's `data/vocab.fbow`) maps the `mono`
+scenario with that `.fbow` vocabulary in the keyframe database
+(`setParams(..., vocabulary=PATH)`) and writes `mono_voc_map.slm` and
+`mono_voc_reverse_jax.json` (pass 1 and the reverse sweep, as above),
+`mono_voc_reloc_jax.json` (the `--reloc` sweep of that map: BoW candidates
+from the trained words), and `vocab_jax.npz`: the vocabulary's digest
+(words, k, a SHA-256 of its centroids, weights and word ids), frame
+FRONTEND_FRAME's descriptors from the JAX frontend and their word ids
+(`quantize_words`).
+
+`--async-trials N` runs pass 1 of the `mono` scenario once with PARAMS
+(`runSequential=True`), once with `runSequential=False` and a
+`waitForFinished()` after every frame (`drained`: the worker maps every
+keyframe the tracker asks for before the next frame, so the run does not
+depend on the host's speed), and N times with `runSequential=False` left
+free, each drained at the end, and N times with `runSequential=False` and
+the worker held back (`held`: each keyframe's mapping ends only once the
+tracker has processed ASYNC_HOLD = 8 more frames, the pace of the port's
+worker beside its tracker on an H100: 7-8 insertions in 57 tracked
+frames), and writes `mono[F]_async_jax.json`: per run the init frame,
+tracked frames, ATE, keyframe insertions, keyframes and points (the JAX
+side of chip_smoke phase 12).
 """
 
 from __future__ import annotations
@@ -99,6 +122,8 @@ MARKER_STRIP_FRAMES = tuple(range(20, 25))
 #: baseline, and the TUM depth scale (raw / 5000 = metres)
 DEPTH_CAMERA = dict(CAMERA, bl=0.25, rgb_depthscale=1.0 / 5000.0)
 DEPTH_SEQUENCE = {"stereo": dict(SEQUENCE, depth_mode="stereo"), "rgbd": dict(SEQUENCE)}
+#: the async scenario's held-back passes: tracked frames each keyframe's mapping is held back
+ASYNC_HOLD = 8
 
 
 def camera_center(pose_f2g: np.ndarray) -> np.ndarray:
@@ -123,11 +148,11 @@ def map_depth_extent(slam: UcoSlam) -> float:
     return float(hi - lo)
 
 
-def run(params: Params, cam: CameraParams, seq: SyntheticSequence, map_path: str):
+def run(params: Params, cam: CameraParams, seq: SyntheticSequence, map_path: str, vocabulary: str | None = None):
     """-> (summary dict, reverse-sweep poses {frame: 4x4})."""
     frames = seq.n_frames
     slam = UcoSlam()
-    slam.setParams(None, params, cam)
+    slam.setParams(None, params, cam, vocabulary=vocabulary)
     fwd = {}
     for i in range(frames):
         pose = slam.process(seq.render(i), fseq=i)
@@ -159,6 +184,27 @@ def run(params: Params, cam: CameraParams, seq: SyntheticSequence, map_path: str
     return summary, rev
 
 
+def vocab_digest(path: str, cam: CameraParams, seq: SyntheticSequence) -> dict:
+    """The .fbow vocabulary's digest, and frame FRONTEND_FRAME's descriptors
+    (the JAX frontend's) with their word ids."""
+    import hashlib
+
+    from ucoslam_tpu.features.frame_extractor import FrameExtractor
+    from ucoslam_tpu.io.fbow import load_fbow
+    from ucoslam_tpu.mapping.kfdatabase import quantize_words
+
+    v = load_fbow(path)
+    h = hashlib.sha256()
+    for a in (v.desc, v.weight, v.word_id):
+        h.update(np.ascontiguousarray(a).tobytes())
+    f = FrameExtractor(PARAMS, cam).process(seq.render(FRONTEND_FRAME), FRONTEND_FRAME)
+    desc = np.asarray(f.desc)
+    words = np.asarray(quantize_words(jnp.asarray(desc), jnp.asarray(v.desc)))
+    return dict(n_words=np.int64(len(v.desc)), k=np.int64(v.k), desc_size=np.int64(v.desc_size),
+                sha256=np.asarray(h.hexdigest()), frame=np.int64(FRONTEND_FRAME), desc=desc,
+                valid=np.asarray(f.valid), words=words.astype(np.int32))
+
+
 def init_spread(params: Params, cam: CameraParams, seq: SyntheticSequence, n_keys: int) -> list[dict]:
     """Pass 1 once per PRNG key of the initializer's draws."""
     import jax
@@ -177,6 +223,52 @@ def init_spread(params: Params, cam: CameraParams, seq: SyntheticSequence, n_key
                          keyframes=slam.map.n_keyframes, points=slam.map.n_points))
         print(json.dumps(runs[-1]), flush=True)
     return runs
+
+
+def async_runs(cam: CameraParams, seq: SyntheticSequence, n_trials: int, hold: int) -> dict:
+    """Pass 1 sequential once, async drained after every frame once, then
+    async left free n_trials times and held back n_trials times."""
+    import time
+
+    from ucoslam_tpu.slam.mapmanager import MapManager
+
+    tracker = {"frame": 0, "held": False}
+    new_keyframe = MapManager.new_keyframe
+
+    def held_new_keyframe(self, *a, **k):
+        start = tracker["frame"]
+        out = new_keyframe(self, *a, **k)
+        while tracker["held"] and tracker["frame"] < start + hold:
+            time.sleep(0.001)
+        return out
+
+    MapManager.new_keyframe = held_new_keyframe
+
+    def one(params: Params, drained: bool = False, held: bool = False) -> dict:
+        slam = UcoSlam()
+        slam.setParams(None, params, cam)
+        fwd = {}
+        tracker.update(frame=0, held=held)
+        for i in range(seq.n_frames):
+            pose = slam.process(seq.render(i), fseq=i)
+            tracker["frame"] += 1
+            if pose is not None:
+                fwd[i] = np.asarray(pose, np.float32)
+            if drained:
+                slam.waitForFinished()
+        tracker["held"] = False
+        slam.waitForFinished()
+        out = dict(init_frame=min(fwd) if fwd else None, tracked=len(fwd), ate=ate_of(fwd, seq),
+                   insertions=slam._system.manager.kf_counter - 2, keyframes=slam.map.n_keyframes,
+                   points=slam.map.n_points)
+        slam.clear()
+        print(json.dumps(out), flush=True)
+        return out
+
+    free = PARAMS.replace(runSequential=False)
+    return dict(sequential=one(PARAMS), drained=one(free, drained=True),
+                trials=[one(free) for _ in range(n_trials)], hold=hold,
+                held=[one(free, held=True) for _ in range(n_trials)])
 
 
 def splice_images(cam: CameraParams, seq: SyntheticSequence) -> list:
@@ -347,6 +439,8 @@ def main(argv=None) -> None:
     ap.add_argument("--markers", action="store_true", help="the markers scenario (see above)")
     ap.add_argument("--stereo", action="store_true", help="the stereo scenario (see above)")
     ap.add_argument("--rgbd", action="store_true", help="the RGB-D scenario (see above)")
+    ap.add_argument("--async-trials", type=int, default=0, help="pass 1 sequential and async (see above)")
+    ap.add_argument("--voc", default=None, help="map with this .fbow vocabulary ('auto': data/vocab.fbow; see above)")
     for flag in ("reloc", "reloc-brute-force", "gap", "reseed"):
         ap.add_argument(f"--{flag}", action="store_true", help="a recovery scenario (see above)")
     args = ap.parse_args(argv)
@@ -388,6 +482,28 @@ def main(argv=None) -> None:
             json.dump(out, f, indent=1)
         print(json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "poses"} if isinstance(v, dict) else v)
                           for k, v in out.items()}), flush=True)
+        return
+    if args.voc:
+        from ucoslam_tpu.io.fbow import default_vocab_path
+
+        voc = default_vocab_path() if args.voc == "auto" else args.voc
+        np.savez_compressed(os.path.join(args.out_dir, "vocab_jax.npz"), **vocab_digest(voc, cam, seq))
+        map_path = os.path.join(args.out_dir, f"{name}_voc_map.slm")
+        summary, rev = run(PARAMS, cam, seq, map_path, vocabulary=voc)
+        with open(os.path.join(args.out_dir, f"{name}_voc_reverse_jax.json"), "w") as f:
+            json.dump({"sequence": sequence, "camera": CAMERA, "vocabulary": os.path.basename(voc), **summary,
+                       "reverse_poses": {str(i): rev[i].tolist() for i in sorted(rev)}}, f, indent=1)
+        print(json.dumps(summary), flush=True)
+        out = {"sequence": sequence, "camera": CAMERA, "scenario": "reloc", "vocabulary": os.path.basename(voc),
+               **recovery("reloc", PARAMS, cam, seq, map_path)}
+        with open(os.path.join(args.out_dir, f"{name}_voc_reloc_jax.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        print(json.dumps({k: v for k, v in out.items() if k != "poses"}), flush=True)
+        return
+    if args.async_trials:
+        out = {"sequence": sequence, "camera": CAMERA, **async_runs(cam, seq, args.async_trials, ASYNC_HOLD)}
+        with open(os.path.join(args.out_dir, f"{name}_async_jax.json"), "w") as f:
+            json.dump(out, f, indent=1)
         return
     if args.init_seeds:
         runs = init_spread(PARAMS, cam, seq, args.init_seeds)

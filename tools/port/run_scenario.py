@@ -20,9 +20,15 @@ save; pass 2 reads the checkpoint, `setMode(LOCALIZATION)`,
 `resetTracker()` and localizes the frames again. It prints per pass the
 frames tracked, the ATE (Horn, scale-aligned) and the median ms per frame
 (host clock to a device synchronize), and pass 1's loop candidates, loops
-closed, keyframes and points, with the card's name and power limit:
+closed, keyframes and points, with the card's name and power limit.
+`--voc PATH` loads that `.fbow` vocabulary into the keyframe database
+(`auto`: the repository's `data/vocab.fbow`, as run_parity.py does); then
+pass 1 also records, per keyframe whose loop query found candidates, the
+candidates, those the PnP check verified, the loop found and whether its
+correction stood (`record_loops`), for `tools/port/loop_reference.py`'s JAX
+run of the same protocol:
 
-    python3 tools/port/run_scenario.py --scenario loop_easy [--out FILE]
+    python3 tools/port/run_scenario.py --scenario loop_easy --voc auto [--out FILE]
 
 Needs a CUDA device.
 """
@@ -62,6 +68,57 @@ PARAMS = Params().replace(maxMapPoints=8192, maxKeyFrames=64, maxKeyPointsPerFra
                           detectMarkers=False)
 
 
+def record_loops(detector, kfmatch_module) -> list:
+    """Wrap a LoopDetector (either package's) so that each keypoint loop
+    query appends {kf_slot, fseq, candidates, verified, found, matched_kf,
+    closed} to the returned list; `kfmatch_module` is the module namespace
+    the detector's `match_keyframe_points_pnp_batch` is looked up in."""
+    log = []
+    detect, correct = detector.detect_from_keypoints, detector.correct_map
+    name = "match_keyframe_points_pnp_batch"
+
+    def detect_logged(world_map, kf_slot, frame, *a, **kw):
+        entry = dict(kf_slot=int(kf_slot), fseq=int(np.asarray(frame.fseq)), candidates=[], verified=[])
+        cands, match = detector.kfdb.relocalization_candidates, getattr(kfmatch_module, name)
+
+        def cands_logged(*ca, **ck):
+            out = cands(*ca, **ck)
+            entry["candidates"] = [int(c) for c in out]
+            return out
+
+        def match_logged(wm, fr, cand_list, *ma, **mk):
+            cms = match(wm, fr, cand_list, *ma, **mk)
+            entry["verified"] = [int(c) for c, cm in zip(cand_list, cms) if bool(cm.ok)]
+            return cms
+
+        detector.kfdb.relocalization_candidates = cands_logged
+        setattr(kfmatch_module, name, match_logged)
+        try:
+            info = detect(world_map, kf_slot, frame, *a, **kw)
+        finally:
+            del detector.kfdb.relocalization_candidates
+            setattr(kfmatch_module, name, match)
+        entry.update(found=bool(info.found), matched_kf=int(info.matched_kf), closed=False)
+        log.append(entry)
+        return info
+
+    def correct_logged(world_map, info, *a, **kw):
+        ok = correct(world_map, info, *a, **kw)
+        if log and log[-1]["kf_slot"] == int(info.cur_kf):
+            log[-1]["closed"] = bool(ok)
+        return ok
+
+    detector.detect_from_keypoints, detector.correct_map = detect_logged, correct_logged
+    return log
+
+
+def loop_summary(log: list) -> dict:
+    """Totals of a record_loops log, and its entries with candidates."""
+    return dict(queries=len(log), candidates=sum(len(e["candidates"]) for e in log),
+                verified=sum(len(e["verified"]) for e in log), found=sum(e["found"] for e in log),
+                closed=sum(e["closed"] for e in log), per_keyframe=[e for e in log if e["candidates"]])
+
+
 def timed_pass(slam: UcoSlam, images, kind: str) -> tuple[dict, list]:
     poses, ms = {}, []
     for i, img in enumerate(images):
@@ -74,7 +131,7 @@ def timed_pass(slam: UcoSlam, images, kind: str) -> tuple[dict, list]:
     return poses, ms
 
 
-def run(name: str) -> dict:
+def run(name: str, vocabulary: str | None = None) -> dict:
     kind = name if name in ("stereo", "rgbd") else "mono"
     cam = CameraParams.create(**DEPTH_CAMERA) if kind != "mono" else None
     seq = SyntheticSequence(cam=cam, **SCENARIOS[name])
@@ -89,7 +146,10 @@ def run(name: str) -> dict:
         return chip_smoke.metric_summary(poses, seq)["metric_ate"] if metric else chip_smoke.ate_of(poses, seq)
 
     slam = UcoSlam(device="cuda")
-    slam.setParams(None, params, seq.cam)
+    slam.setParams(None, params, seq.cam, vocabulary=vocabulary)
+    from ucoslam_tpu_torch.slam import loopclosure
+
+    loops = record_loops(slam._system.manager.loop_detector, loopclosure)
     t0 = time.perf_counter()
     p1, ms1 = timed_pass(slam, images, kind)
     t_ba = time.perf_counter()
@@ -109,6 +169,7 @@ def run(name: str) -> dict:
     n = seq.n_frames
     return dict(
         scenario=name, sequence=SCENARIOS[name], frames=n,
+        vocabulary=None if vocabulary is None else os.path.basename(vocabulary), loops=loop_summary(loops),
         pass1=dict(tracked=len(p1), tracked_pct=len(p1) / n, ate=ate(p1), metric_ate=metric,
                    ms_median=float(np.median(ms1)), ms_mean=float(np.mean(ms1)), seconds=t_map,
                    global_ba_s=t_ba, loop_queries=mgr.loop_detector.n_queries,
@@ -124,13 +185,16 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scenario", choices=sorted(SCENARIOS), default="loop_easy")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
+    ap.add_argument("--voc", default=None, help="a .fbow vocabulary for the keyframe database ('auto': data/vocab.fbow)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("run_scenario: no CUDA device")
     from ucoslam_tpu_torch.slam.system import disable_tf32
 
     disable_tf32()
-    out = run(args.scenario)
+    from ucoslam_tpu_torch.io.fbow import default_vocab_path
+
+    out = run(args.scenario, default_vocab_path() if args.voc == "auto" else args.voc)
     out["device"] = torch.cuda.get_device_name(0)
     out["nvidia_smi"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                                        capture_output=True, text=True, timeout=60).stdout.strip()

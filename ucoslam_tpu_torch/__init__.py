@@ -8,7 +8,7 @@ kernels for `sm_90a` (`csrc/`), built with `nvcc` at their first launch on a
 CUDA tensor (`ops/cuda`). On a CPU tensor every kernel wrapper runs its plain
 PyTorch version instead, which is what the CPU tests exercise.
 
-Ported so far: monocular SLAM in sequential mode (`UcoSlam.setParams` ->
+Ported so far: monocular SLAM (`UcoSlam.setParams` ->
 `process(img)` per frame -> `saveToFile`), LOCALIZATION against a saved
 map (`readFromFile` -> `setMode(Mode.LOCALIZATION)` -> `process(img)`),
 relocalization after `resetTracker()` or a lost frame, the re-seed of a new
@@ -18,9 +18,12 @@ g++; IPPE; marker and hybrid init with metric scale; marker rows in the
 tracker's LM; marker vertices in BA; the marker relocalization fallback;
 marker loops), and stereo and RGB-D input (`processStereo` on a rectified
 pair, `io.stereorectify.StereoRectify` for a calibrated rig, and
-`processRGBD`; the one-frame metric depth init). The point-major BA, the
-async mapper and `.fbow` vocabularies are not ported yet (ROADMAP.md,
-Queue 1 items 6 and 7).
+`processRGBD`; the one-frame metric depth init), trained `.fbow`
+vocabularies (`setParams(..., vocabulary=path)`), global BA at scale (the
+point-major and matrix-free CG solvers) and the asynchronous mapper
+(`runSequential=False`). Left (ROADMAP.md, Queue 1): the port's benchmark,
+the frontend options, IO, apps and the harness (item 7), then multi-GPU
+(item 8).
 
 This package imports neither jax nor anything of `ucoslam_tpu`: `Params`,
 `Mode` and `TrackingState` are its own (`ucoslam_tpu_torch.config`).

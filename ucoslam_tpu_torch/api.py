@@ -1,17 +1,19 @@
 """Public facade: the UcoSlam-equivalent user-facing class.
 
-Port of `ucoslam_tpu/api.py` for sequential SLAM and LOCALIZATION:
-`setParams` (a fresh map, or one passed in) -> `process` (monocular),
+Port of `ucoslam_tpu/api.py`: `setParams` (a fresh map, or one passed in;
+`vocabulary`, a `.fbow` file for the keyframe database, e.g.
+`io.fbow.default_vocab_path()`) -> `process` (monocular),
 `processStereo` (a rectified pair; `io.stereorectify.StereoRectify` makes
 one from a calibrated rig) or `processRGBD` (an image and its raw depth) per
 frame -> `saveToFile` (map, tracker state, keyframe database, extractor
 sensitivity); `readFromFile` restores all of it; `setMode`,
 `updateParams`, `resetTracker` (the next frame relocalizes),
-`globalOptimization` (full-map BA) and the pose and signature queries.
+`globalOptimization` (full-map BA), the pose and signature queries,
+`prefetch` (start the next image's copy to the card), `waitForFinished`
+(drain the mapping worker of `runSequential=False`) and `clear` (stop it).
 With `detectMarkers` (the default) `setParams` and `readFromFile` build the
 native ArUco detector from the `aruco_*` parameters and raise when it cannot
-be built. `.fbow` vocabularies are not ported yet (ROADMAP.md, Queue 1
-item 7).
+be built.
 """
 
 from __future__ import annotations
@@ -63,6 +65,19 @@ class UcoSlam:
         if vocabulary:
             self._system.manager.kfdb.load_vocabulary(vocabulary)
 
+    def clear(self) -> None:
+        """Stop the mapping worker, if any, and drop the system and the map."""
+        if self._system is not None:
+            self._system.shutdown()
+        self._system = None
+        self._map = None
+
+    def prefetch(self, img: np.ndarray) -> None:
+        """Hint that `img` is the next `process` argument: its copy to the
+        card starts now and overlaps this frame's host work."""
+        if self._extractor is not None:
+            self._extractor.prefetch(img)
+
     def process(self, img: np.ndarray, fseq: int = 0) -> np.ndarray | None:
         """Monocular frame -> pose_f2g (4x4) or None when lost."""
         return self._system.process_frame(self._extractor.process(img, fseq))
@@ -92,13 +107,21 @@ class UcoSlam:
     def resetTracker(self) -> None:
         self._system.reset_tracker()
 
+    def waitForFinished(self) -> None:
+        """Drain the mapping worker (async mode), raising the error a worker
+        step raised; nothing is pending in sequential mode."""
+        self._system.wait_for_finished()
+
     def globalOptimization(self, n_iters: int | None = None) -> None:
-        """Full bundle adjustment over the map."""
+        """Full bundle adjustment over the map, after the worker drains."""
+        self._system.wait_for_finished()
         global_bundle_adjustment(self._map, self._system.cam, n_iters=n_iters or self._params.baIters)
 
     def saveToFile(self, path: str) -> None:
         """Full session checkpoint: map, motion model, counters, keyframe
-        database and extractor sensitivity, in the reference's layout."""
+        database and extractor sensitivity, in the reference's layout (the
+        mapping worker drained first)."""
+        self._system.wait_for_finished()
         sysd = self._system
         meta = {
             "pose": None if sysd.pose is None else sysd.pose.tolist(),

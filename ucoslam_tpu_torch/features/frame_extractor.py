@@ -52,6 +52,7 @@ class FrameExtractor:
         self.cam = cam
         self.device = torch.device(device)
         self.marker_detector = marker_detector
+        self._prefetched = None  # (image, pinned host copy, device copy) of the next frame
         self.orb = ORBExtractor(
             max_features=min(params.maxFeatures, params.maxKeyPointsPerFrame),
             n_levels=params.nOctaveLevels,
@@ -60,8 +61,26 @@ class FrameExtractor:
             k_per_cell=1 if params.KPNonMaximaSuppresion else 4,
         )
 
+    def prefetch(self, img: np.ndarray) -> None:
+        """Start the copy of the next frame's image to the device now, from
+        pinned host memory without blocking, so that it overlaps this
+        frame's host work; the next call on this very array uses it."""
+        host = torch.from_numpy(np.ascontiguousarray(img))
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        self._prefetched = (img, host, host.to(self.device, non_blocking=True))
+
+    def _take_prefetched(self, img: np.ndarray) -> torch.Tensor:
+        """The image on the device: its prefetched copy, or a copy now. The
+        pinned buffer stays referenced until then, so the copy completes
+        from live memory (the stream orders it before any use)."""
+        if self._prefetched is not None and self._prefetched[0] is img:
+            buf, self._prefetched = self._prefetched[2], None
+            return buf
+        return torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+
     def _gray(self, img: np.ndarray) -> torch.Tensor:
-        return rgb_to_gray(torch.from_numpy(np.ascontiguousarray(img)).to(self.device))
+        return rgb_to_gray(self._take_prefetched(img))
 
     def _base_frame(self, img: np.ndarray, fseq: int) -> tuple[Frame, torch.Tensor]:
         """(H, W) gray or (H, W, 3) BGR image -> (Frame, gray image), both on

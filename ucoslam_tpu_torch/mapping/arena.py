@@ -15,6 +15,13 @@ class Arena:
         self.capacity = capacity
         self.active = np.zeros(capacity, bool)
 
+    @classmethod
+    def of_mask(cls, mask: np.ndarray) -> "Arena":
+        """An arena whose live slots are those of a liveness mask."""
+        arena = cls(len(mask))
+        arena.sync_from_mask(mask)
+        return arena
+
     def alloc(self) -> int:
         """Allocate the lowest free slot (deterministic reuse order)."""
         free = np.nonzero(~self.active)[0]

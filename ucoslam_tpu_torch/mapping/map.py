@@ -357,11 +357,17 @@ def op_apply_transform(state: MapState, T: torch.Tensor) -> MapState:
 
 
 class Map:
-    """Host-side owner of a MapState plus the slot arenas."""
+    """Host-side owner of a MapState plus the slot arenas.
+
+    The state and its host mirror are swapped together, as one tuple, so a
+    reader on another thread (the tracker while the mapping worker writes)
+    never caches one state's values under another. The slot arenas move
+    before the state that records them is written; in async mode only the
+    worker allocates and frees slots, and the tracker reads a `snapshot()`.
+    """
 
     def __init__(self, params: Params, state: MapState | None = None, device="cuda"):
         self.params = params
-        self._host_cache: dict = {}
         self.state = state if state is not None else empty_map_state(params, device)
         self.points = Arena(self.state.P)
         self.keyframes = Arena(self.state.K)
@@ -370,28 +376,45 @@ class Map:
     # -- host mirror: fetched fields are cached until the next state write
     @property
     def state(self) -> MapState:
-        return self._state
+        return self._snap[0]
 
     @state.setter
     def state(self, v: MapState) -> None:
-        self._state = v
-        self._host_cache.clear()
+        self._snap = (v, {})
 
     @property
     def device(self) -> torch.device:
-        return self._state.pt_pos.device
+        return self.state.pt_pos.device
 
     def h(self, *names: str):
         """Cached host-numpy copies of state fields, the missing ones fetched
         in one bundled transfer: `map.h('pt_active')` or
         `a, b = map.h('pt_active', 'kf_pose')`."""
-        missing = [n for n in names if n not in self._host_cache]
+        st, cache = self._snap
+        missing = [n for n in names if n not in cache]
         if missing:
-            vals = fetch_to_host(*(getattr(self._state, n) for n in missing))
-            self._host_cache.update(zip(missing, vals))
+            cache.update(zip(missing, fetch_to_host(*(getattr(st, n) for n in missing))))
         if len(names) == 1:
-            return self._host_cache[names[0]]
-        return tuple(self._host_cache[n] for n in names)
+            return cache[names[0]]
+        return tuple(cache[n] for n in names)
+
+    def _cached(self, key: str, op):
+        """op(state) fetched once per state, in its host mirror."""
+        st, cache = self._snap
+        if key not in cache:
+            cache[key] = op(st).cpu().numpy()
+        return cache[key]
+
+    def snapshot(self) -> "Map":
+        """A read-only Map over the state as it is now, with its own host
+        mirror and slot arenas rebuilt from that state's liveness masks: what
+        the tracker reads for one frame while the mapping worker writes."""
+        view = Map.__new__(Map)
+        view.params = self.params
+        view.state = self.state
+        view.points, view.keyframes, view.markers = [
+            Arena.of_mask(m) for m in view.h("pt_active", "kf_active", "mk_active")]
+        return view
 
     # -- capacity growth ------------------------------------------------
     def grow_points(self, new_P: int | None = None) -> int:
@@ -520,9 +543,7 @@ class Map:
         return self.keyframes.n_active
 
     def covis_matrix(self) -> np.ndarray:
-        if "covis_matrix" not in self._host_cache:
-            self._host_cache["covis_matrix"] = op_covis_matrix(self.state).cpu().numpy()
-        return self._host_cache["covis_matrix"]
+        return self._cached("covis_matrix", op_covis_matrix)
 
     def essential_graph(self, min_weight: int = 15) -> list[tuple[int, int, float]]:
         """Essential graph over the active keyframes: the maximum spanning
@@ -576,20 +597,18 @@ class Map:
         return float(total / ok.sum().clamp(min=1))
 
     def point_observation_counts(self) -> np.ndarray:
-        if "point_obs_counts" not in self._host_cache:
-            self._host_cache["point_obs_counts"] = op_point_observation_counts(self.state).cpu().numpy()
-        return self._host_cache["point_obs_counts"]
+        return self._cached("point_obs_counts", op_point_observation_counts)
 
     def bump_point_stats(self, vis_mask: torch.Tensor, seen_mask: torch.Tensor) -> None:
         """Increment the per-point visible/seen counters. Runs every tracked
         frame and touches only the two counters, so only they leave the
         host mirror."""
-        self._state = self._state.replace(
-            pt_n_visible=self._state.pt_n_visible + vis_mask.to(torch.int32),
-            pt_n_seen=self._state.pt_n_seen + seen_mask.to(torch.int32),
+        st, cache = self._snap
+        st = st.replace(
+            pt_n_visible=st.pt_n_visible + vis_mask.to(torch.int32),
+            pt_n_seen=st.pt_n_seen + seen_mask.to(torch.int32),
         )
-        self._host_cache.pop("pt_n_seen", None)
-        self._host_cache.pop("pt_n_visible", None)
+        self._snap = (st, {k: v for k, v in cache.items() if k not in ("pt_n_seen", "pt_n_visible")})
 
     def scale(self, s: float) -> None:
         self.state = op_scale_map(self.state, s)

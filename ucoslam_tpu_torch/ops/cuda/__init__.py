@@ -17,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -31,6 +32,10 @@ NVCC_FLAGS = (
 
 #: seconds spent in nvcc by this process, per kernel source
 build_seconds: dict[str, float] = {}
+#: held while building, and by the wrappers while they count a launch: in
+#: async mode the tracker and the mapping worker both launch kernels
+_build_lock = threading.Lock()
+count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -49,6 +54,11 @@ def _library_path(name: str) -> Path:
 def build(*names: str) -> None:
     """Build the libraries of `csrc/<name>.cu` that are not built yet, with
     one nvcc process for each, all started together."""
+    with _build_lock:
+        _build(names)
+
+
+def _build(names) -> None:
     jobs = {}
     for name in names:
         lib = _library_path(name)

@@ -171,7 +171,8 @@ def motion_only_lm_fused(
         pose.data_ptr(), mask.data_ptr(), cuda.stream_handle(dev),
     )
     cuda.check_launch(err, "motion_only_lm")
-    launches += 1
+    with cuda.count_lock:
+        launches += 1
     return pose, mask.view(torch.bool)
 
 
@@ -238,8 +239,9 @@ def motion_only_lm_fused_batched(
         pose.data_ptr(), mask.data_ptr(), cuda.stream_handle(dev),
     )
     cuda.check_launch(err, "motion_only_lm (batched)")
-    launches += 1
-    batched_launches += 1
+    with cuda.count_lock:
+        launches += 1
+        batched_launches += 1
     return pose, mask.view(torch.bool)
 
 

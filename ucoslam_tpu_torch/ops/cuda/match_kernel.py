@@ -70,7 +70,8 @@ def project_match(desc_a, uv_a, oct_a, valid_a, desc_b, uv_b, oct_b, valid_b, ra
         cuda.stream_handle(dev),
     )
     cuda.check_launch(err, "project_match")
-    launches += 1
+    with cuda.count_lock:
+        launches += 1
     return idx, best, second
 
 

@@ -1,6 +1,6 @@
-"""Schur-complement Levenberg-Marquardt bundle adjustment (dense branch).
+"""Schur-complement Levenberg-Marquardt bundle adjustment.
 
-Port of the dense branch of `ucoslam_tpu/optim/ba.py`: SE3 keyframe
+Port of `ucoslam_tpu/optim/ba.py`: SE3 keyframe
 vertices, XYZ point vertices marginalized by the Schur complement, mono 2D
 edges with information 1/sigma^2 (plus a masked stereo disparity row),
 free SE3 marker vertices with 8-D corner edges (their weight balanced
@@ -9,19 +9,23 @@ markers when `inPlaneMarkers` is on, two stages of fixed LM iterations
 (Huber with delta^2 = chi2 first, then the keypoint outliers demoted and the
 kernel dropped; marker edges stay quadratic and are never demoted),
 adaptive damping, and the bad-association sweep. The reduced system over
-V = K cameras + M markers is assembled as one matrix product `GY @ GA.T`
-plus the marker blocks, and solved densely (`torch.linalg.solve`), as the
-reference does for small windows. Every per-camera reduction is a gather
-through the static camera->observation table and a sum, and the marker
-blocks are added through one-hot products, so the card sums in a fixed
-order and gives the same result on every run.
+V = K cameras + M markers is solved one of three ways, routed as the
+reference routes them (`ba_solve`):
 
-`local_bundle_adjustment` solves a covisibility window,
-`global_bundle_adjustment` the whole map (the first keyframe fixed): a map
-of up to 112 keyframes pads to fewer than 128 slots and takes the dense
-route. Not ported (raising NotImplementedError naming its ROADMAP item): the
-matrix-free CG solve, and the point-major solver the reference routes
-marker-free problems of >= 128 vertex slots to.
+- dense: assembled as one matrix product `GY @ GA.T` plus the marker
+  blocks, and solved by `torch.linalg.solve` (small windows);
+- "cg": matrix-free block-Jacobi PCG (`cg_iters` iterations an LM step);
+  the Schur matvec goes through the points and back through the
+  camera->observation table, never forming S (marker problems of >= 512
+  vertex slots, or on request);
+- point-major (`schur_pm.py`): marker-free problems of >= 128 vertex slots
+  under solver="auto", the observations regrouped by point.
+
+Every per-camera reduction is a gather through the static
+camera->observation table and a sum, and the marker blocks are added
+through one-hot products, so the card sums in a fixed order and gives the
+same result on every run. `local_bundle_adjustment` solves a covisibility
+window, `global_bundle_adjustment` the whole map (the first keyframe fixed).
 """
 
 from __future__ import annotations
@@ -235,7 +239,43 @@ def _pad_row(x: torch.Tensor) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((1,) + x.shape[1:])])
 
 
-def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, cam_pose, mk_pose, pt_pos, lam, cost_prev):
+def pcg(matvec, b_f: torch.Tensor, Minv: torch.Tensor, cg_iters: int) -> torch.Tensor:
+    """cg_iters block-Jacobi-preconditioned CG iterations on S x = b_f from
+    x = 0; a converged or degenerate iteration takes a zero step (no host
+    test). Shared with `schur_pm.py`."""
+    def apply_M(rv):
+        return torch.einsum("vij,vj->vi", Minv, rv)
+
+    x = torch.zeros_like(b_f)
+    rr = b_f
+    p = apply_M(rr)
+    rz = (rr * p).sum()
+    for _ in range(cg_iters):
+        Sp = matvec(p)
+        pSp = (p * Sp).sum()
+        alpha = rz / torch.where(pSp.abs() < 1e-20, 1e-20, pSp)
+        alpha = torch.where(rz < 1e-20, 0.0, alpha)
+        x = x + alpha * p
+        rr = rr - alpha * Sp
+        zv = apply_M(rr)
+        rz_new = (rr * zv).sum()
+        beta = rz_new / torch.where(rz < 1e-20, 1.0, rz)
+        p = zv + beta * p
+        rz = rz_new
+    return x
+
+
+def block_jacobi(D: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
+    """(V, 6, 6) inverses of the Schur diagonal blocks (identity for fixed
+    vertices); `inv_ex` does not test for singularity, so the host waits
+    for nothing."""
+    eye6 = torch.eye(6, device=D.device)
+    Minv = torch.linalg.inv_ex(D + 1e-6 * eye6)[0]
+    return torch.where(free[:, None, None], Minv, eye6)
+
+
+def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, use_cg: bool, cg_iters: int,
+             cam_pose, mk_pose, pt_pos, lam, cost_prev):
     K = cam_pose.shape[0]
     M = 0 if problem.mk_pose is None else mk_pose.shape[0]
     V = K + M
@@ -281,14 +321,20 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, cam_pose, mk
     Y = A @ Hpp_inv[problem.obs_pt]  # (O, 6, 3)
     bcorr_o = torch.einsum("oij,oj->oi", Y, bp[problem.obs_pt])  # (O, 6)
 
-    # Schur complement as one matrix product of the camera-contracted tables
-    Y_list = torch.einsum("pmij,pjk->pmik", A_list, Hpp_inv)  # (P, MO, 6, 3)
-    U = _one_hot(cam_list, V + 1)[..., :V]
-    GY = torch.einsum("pmc,pmij->cipj", U, Y_list).reshape(V * 6, P * 3)
-    GA = torch.einsum("pmc,pmij->cipj", U, A_list).reshape(V * 6, P * 3)
-    S = -(GY @ GA.T).reshape(V, 6, V, 6).permute(0, 2, 1, 3)
     b_corr = -cam_reduce(bcorr_o)
+    if use_cg:
+        # the exact Schur diagonal blocks, for the block-Jacobi preconditioner
+        # (a camera sees a point once, so only m1 == m2 terms land there)
+        DK = cam_reduce(torch.einsum("oij,okj->oik", Y, A))  # (V, 6, 6)
+    else:
+        # Schur complement as one matrix product of the camera-contracted tables
+        Y_list = torch.einsum("pmij,pjk->pmik", A_list, Hpp_inv)  # (P, MO, 6, 3)
+        U = _one_hot(cam_list, V + 1)[..., :V]
+        GY = torch.einsum("pmc,pmij->cipj", U, Y_list).reshape(V * 6, P * 3)
+        GA = torch.einsum("pmc,pmij->cipj", U, A_list).reshape(V * 6, P * 3)
+        S = -(GY @ GA.T).reshape(V, 6, V, 6).permute(0, 2, 1, 3)
 
+    binary = []  # the binary marker blocks: (one-hot a, one-hot b, (Mo, 6, 6) blocks)
     if M:
         # marker corner edges: camera and marker blocks, and the binary
         # camera<->marker blocks, summed through one-hot products
@@ -299,7 +345,7 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, cam_pose, mk
             + torch.einsum("ov,oij->vij", Em, torch.einsum("oij,oik,o->ojk", Jmm, Jmm, wm))
         bv = bv + Ec.T @ torch.einsum("oij,oi,o->oj", Jcm, rm, wm) + Em.T @ torch.einsum("oij,oi,o->oj", Jmm, rm, wm)
         cross = torch.einsum("oij,oik,o->ojk", Jcm, Jmm, wm)  # (Mo, 6, 6)
-        S = S + torch.einsum("oa,ob,oij->abij", Ec, Em, cross) + torch.einsum("oa,ob,oij->abji", Em, Ec, cross)
+        binary.append((Ec, Em, cross))
         if problem.plan_ref is not None:
             rp, J1, J2 = _planar_residual_jac(problem, mk_pose)
             wp = problem.plan_valid.to(torch.float32) * problem.plan_w
@@ -307,21 +353,37 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, cam_pose, mk
             Hv = Hv + torch.einsum("ov,oij->vij", E1, torch.einsum("oij,oik,o->ojk", J1, J1, wp)) \
                 + torch.einsum("ov,oij->vij", E2, torch.einsum("oij,oik,o->ojk", J2, J2, wp))
             bv = bv + E1.T @ torch.einsum("oij,oi,o->oj", J1, rp, wp) + E2.T @ torch.einsum("oij,oi,o->oj", J2, rp, wp)
-            crossp = torch.einsum("oij,oik,o->ojk", J1, J2, wp)
-            S = S + torch.einsum("oa,ob,oij->abij", E1, E2, crossp) + torch.einsum("oa,ob,oij->abji", E2, E1, crossp)
+            binary.append((E1, E2, torch.einsum("oij,oik,o->ojk", J1, J2, wp)))
+        if not use_cg:
+            for Ea, Eb, blk in binary:
+                S = S + torch.einsum("oa,ob,oij->abij", Ea, Eb, blk) + torch.einsum("oa,ob,oij->abji", Eb, Ea, blk)
 
     HvD = Hv + lam * eye6 * torch.clamp(Hv.diagonal(dim1=-2, dim2=-1).sum(-1)[:, None, None] / 6.0, min=1.0)
     b_f = torch.where(free[:, None], bv + b_corr, 0.0)
-    diag = torch.arange(V, device=dev)
-    S = S.clone()
-    S[diag, diag] += HvD
-    # fixed / invalid vertices: identity rows, zero right-hand side
-    Sf = torch.where(free[:, None, None, None] & free[None, :, None, None], S, 0.0)
-    Sf[diag, diag] += torch.where(free, 0.0, 1.0)[:, None, None] * eye6
-    S_full = Sf.permute(0, 2, 1, 3).reshape(6 * V, 6 * V)
-    delta_v = torch.linalg.solve(
-        S_full + 1e-8 * torch.eye(6 * V, device=dev), b_f.reshape(-1)
-    ).reshape(V, 6)
+    if use_cg:
+        def matvec(x):
+            """S @ x without S: through the points (3x3 applies) and back
+            through the camera->observation table; the binary marker blocks
+            through their one-hot products."""
+            u = torch.einsum("pmij,pmi->pj", A_list, _pad_row(x)[cam_list])  # (P, 3)
+            v = torch.einsum("pij,pj->pi", Hpp_inv, u)
+            y = torch.einsum("vij,vj->vi", HvD, x) - cam_reduce(torch.einsum("oij,oj->oi", A, v[problem.obs_pt]))
+            for Ea, Eb, blk in binary:
+                y = y + Ea.T @ torch.einsum("oij,oj->oi", blk, Eb @ x) + Eb.T @ torch.einsum("oji,oj->oi", blk, Ea @ x)
+            return torch.where(free[:, None], y, x)
+
+        delta_v = pcg(matvec, b_f, block_jacobi(HvD - DK, free), cg_iters)
+    else:
+        diag = torch.arange(V, device=dev)
+        S = S.clone()
+        S[diag, diag] += HvD
+        # fixed / invalid vertices: identity rows, zero right-hand side
+        Sf = torch.where(free[:, None, None, None] & free[None, :, None, None], S, 0.0)
+        Sf[diag, diag] += torch.where(free, 0.0, 1.0)[:, None, None] * eye6
+        S_full = Sf.permute(0, 2, 1, 3).reshape(6 * V, 6 * V)
+        delta_v = torch.linalg.solve(
+            S_full + 1e-8 * torch.eye(6 * V, device=dev), b_f.reshape(-1)
+        ).reshape(V, 6)
     delta_v = torch.where(free[:, None], delta_v, 0.0)
 
     # back-substitute the points through the same table
@@ -343,10 +405,11 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, cam_pose, mk
     return cam_pose, mk_pose, pt_pos, lam, cost
 
 
-def _staged_lm(problem: BAProblem, cam: CameraParams, iters: int, stages: int):
+def _staged_lm(problem: BAProblem, cam: CameraParams, iters: int, stages: int, use_cg: bool = False,
+               cg_iters: int = 32):
     """`stages` rounds of `iters` LM steps, the keypoint outliers demoted
-    between them. -> (cam_pose, mk_pose, pt_pos, costs, obs_chi2, obs_bad);
-    no host sync inside."""
+    between them; the dense solve, or `cg_iters` PCG iterations a step.
+    -> (cam_pose, mk_pose, pt_pos, costs, obs_chi2, obs_bad)."""
     has_mk = problem.mk_pose is not None
     free = problem.cam_valid & ~problem.cam_fixed
     if has_mk:
@@ -362,7 +425,7 @@ def _staged_lm(problem: BAProblem, cam: CameraParams, iters: int, stages: int):
         lam = torch.tensor(1e-4, dtype=torch.float32, device=cam_pose.device)
         for _ in range(iters):
             cam_pose, mk_pose, pt_pos, lam, cost = _lm_step(
-                problem, cam, free, w_info, active, robust, cam_pose, mk_pose, pt_pos, lam, cost
+                problem, cam, free, w_info, active, robust, use_cg, cg_iters, cam_pose, mk_pose, pt_pos, lam, cost
             )
             all_costs.append(cost)
         if stage < stages - 1:
@@ -373,19 +436,53 @@ def _staged_lm(problem: BAProblem, cam: CameraParams, iters: int, stages: int):
     return cam_pose, mk_pose, pt_pos, torch.stack(all_costs), c2, bad
 
 
-def ba_solve(problem: BAProblem, cam: CameraParams, iters: int = 20, stages: int = 2, solver: str = "auto") -> BAResult:
-    """LM with point marginalization and free marker vertices: the
-    reference's dense Schur solve (its route for marker-free problems of
-    fewer than 128 vertex slots and marker problems of fewer than 512)."""
+def ba_solve(problem: BAProblem, cam: CameraParams, iters: int = 20, stages: int = 2, solver: str = "auto",
+             cg_iters: int = 32) -> BAResult:
+    """LM with point marginalization and free marker vertices. solver:
+    "dense", "cg" (matrix-free PCG, `cg_iters` iterations a step) or "auto",
+    routed as the reference: a marker-free problem of >= 128 vertex slots to
+    the point-major solver (`schur_pm.py`; a graph too skewed for it falls
+    through), then "cg" from 512 slots, else "dense". Only "auto" reroutes."""
+    from ucoslam_tpu_torch.optim import schur_pm  # it builds on this module
+
     has_mk = problem.mk_pose is not None
     V = problem.cam_pose.shape[0] + (problem.mk_pose.shape[0] if has_mk else 0)
-    if solver == "cg" or (solver == "auto" and (V >= 512 or (V >= 128 and not has_mk))):
-        raise NotImplementedError(
-            f"BA over {V} vertex slots takes the reference's point-major or CG solver, which is "
-            "not ported yet (ROADMAP.md, Queue 1 item 6: global BA at scale)"
-        )
-    cam_pose, mk_pose, pt_pos, costs, c2, bad = _staged_lm(problem, cam, iters, stages)
+    if solver == "auto" and V >= 128:
+        pm = schur_pm.pm_problem_for(problem)
+        if pm is not None:
+            return _pm_result(problem, pm, cam, schur_pm.pm_staged_lm(pm, cam, iters=iters, stages=stages,
+                                                                       cg_iters=cg_iters))
+    if solver == "auto":
+        solver = "cg" if V >= 512 else "dense"
+    if solver not in ("dense", "cg"):
+        raise ValueError(f"unknown solver {solver!r}")
+    cam_pose, mk_pose, pt_pos, costs, c2, bad = _staged_lm(problem, cam, iters, stages, solver == "cg", cg_iters)
     return BAResult(cam_pose=cam_pose, pt_pos=pt_pos, obs_chi2=c2, obs_bad=bad, cost_history=costs, mk_pose=mk_pose)
+
+
+def _pm_result(problem: BAProblem, pm, cam: CameraParams, out) -> BAResult:
+    """The point-major solve's outputs in the problem's observation order:
+    each grid cell's chi2 and bad flag written back at its source index (the
+    indices are unique; the pads all land on one spare slot, cut off); the
+    observations the skew cap left out get an exact chi2 pass at the final
+    estimate."""
+    cam_pose, pt_pos, costs, c2_pm, bad_pm = out
+    O = problem.obs_cam.shape[0]
+    src = torch.where(pm.o_src >= 0, pm.o_src, O).reshape(-1)
+    c2 = c2_pm.new_zeros(O + 1)
+    c2[src] = c2_pm.reshape(-1)
+    bad = torch.zeros(O + 1, dtype=torch.bool, device=c2.device)
+    bad[src] = bad_pm.reshape(-1)
+    c2, bad = c2[:O], bad[:O]
+    if pm.dropped_obs:
+        covered = torch.zeros(O + 1, dtype=torch.bool, device=c2.device)
+        covered[src] = True
+        covered = covered[:O]
+        c2_full, q_full = _chi2_of(problem, cam_pose, pt_pos, cam)
+        bad_full = problem.obs_valid & ((c2_full > _delta2(problem)) | (q_full[..., 2] <= 0))
+        c2 = torch.where(covered, c2, c2_full)
+        bad = torch.where(covered, bad, bad_full)
+    return BAResult(cam_pose=cam_pose, pt_pos=pt_pos, obs_chi2=c2, obs_bad=bad, cost_history=costs, mk_pose=None)
 
 
 # ----------------------------------------------------------------------

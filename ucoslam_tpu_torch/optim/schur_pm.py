@@ -1,0 +1,437 @@
+"""Point-major Schur-complement LM: the bundle adjustment of big maps.
+
+Port of `ucoslam_tpu/optim/schur_pm.py`. The algorithm is `ba.py`'s (SE3
+cameras, marginalized XYZ points, mono and stereo edges, two stages with
+the outliers demoted between them), with the observations sorted point-major
+into a uniform (P, MO) grid on the host (`build_pm_problem`):
+
+- every per-point reduction (Hpp, bp, the back-substitution) is a reshape
+  and a sum over the grid, and the point enters its residuals by broadcast;
+- every per-camera reduction is a gather through the static camera ->
+  observation-slot table `cam_obs` and a sum;
+- the off-diagonal Schur blocks are assembled once per linearization into a
+  block-sparse (NP, 6, 6) form through the unique camera-pair tables
+  (`pair_m1`/`pair_m2`), so each PCG iteration touches only those blocks and
+  (V, 6) vectors;
+- Jacobian-derived quantities are rebuilt every `relin_every` LM steps (lazy
+  relinearization); gradients and the acceptance cost use the current
+  residuals every step, so a stale step is rejected, never applied.
+
+No index_add_ or scatter_add_ (their order is not fixed on the card): the
+card sums in one order and gives the same result on every run. The LM and
+PCG loops are Python loops over tensors: the step acceptance, the damping
+and the PCG guards are chosen with `torch.where`, so nothing leaves the
+device until the caller fetches the result. The tables keep the reference's
+power-of-two widths (`bucket`), so they equal the reference's exactly.
+Marker edges are not supported: `build_pm_problem` returns None for a
+problem with marker vertices, and `ba_solve` takes its general path.
+`psum` (identity) is the reference's hook for a sharded solver.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ucoslam_tpu_torch.config import CHI2_2D, CHI2_3D
+from ucoslam_tpu_torch.geometry.camera import CameraParams
+from ucoslam_tpu_torch.geometry.se3 import _hat, se3_exp
+from ucoslam_tpu_torch.mapping.frame import fetch_to_host
+from ucoslam_tpu_torch.optim.ba import _inv3x3, _pad_row, block_jacobi, pcg
+
+
+@dataclass
+class PMProblem:
+    """Point-major BA problem: the uniform (P, MO) observation grid and its
+    static reduction tables (index tensors int64, -1 pads)."""
+
+    cam_pose: torch.Tensor  # (V, 4, 4)
+    cam_fixed: torch.Tensor  # (V,)
+    cam_valid: torch.Tensor  # (V,)
+    pt_pos: torch.Tensor  # (P, 3)
+    pt_valid: torch.Tensor  # (P,)
+    o_cam: torch.Tensor  # (P, MO), V = pad
+    o_uv: torch.Tensor  # (P, MO, 2)
+    o_sigma2: torch.Tensor  # (P, MO)
+    o_depth: torch.Tensor  # (P, MO)
+    o_valid: torch.Tensor  # (P, MO) bool
+    o_src: torch.Tensor  # (P, MO) original observation index (-1 pad)
+    bf: float
+    cam_obs: torch.Tensor  # (V, CO) flat p * MO + m slot ids (-1 pad)
+    # block-sparse off-diagonal Schur structure (unique camera pairs i < j):
+    # per contribution the two observation slots (p * MO + m1, p * MO + m2)
+    pair_m1: torch.Tensor  # (NP, CP)
+    pair_m2: torch.Tensor  # (NP, CP)
+    vp_pair: torch.Tensor  # (V, PB) pair id (-1 pad)
+    vp_other: torch.Tensor  # (V, PB) the pair's other vertex
+    vp_trans: torch.Tensor  # (V, PB) bool: this vertex is the pair's j side
+    dropped_obs: int = 0  # observations the skew cap left out of the solve
+
+
+def bucket(n: int, lo: int = 8) -> int:
+    """n rounded up to a power of two, at least lo (the reference's table
+    widths, which it quantizes so that its compiled solver is reused)."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def build_pm_problem(problem) -> PMProblem | None:
+    """A `ba.BAProblem` in point-major form (host numpy, one fetch), or None
+    when it does not suit: marker vertices present, or an observation graph
+    so skewed that the uniform grid or the pair tables would pay more than
+    ~2.5x padding even with the per-point observations capped."""
+    if problem.mk_valid is not None and bool(problem.mk_valid.any()):
+        return None
+    obs_cam, obs_pt, obs_valid, obs_uv, obs_sigma2, obs_depth = fetch_to_host(
+        problem.obs_cam, problem.obs_pt, problem.obs_valid, problem.obs_uv, problem.obs_sigma2, problem.obs_depth
+    )
+    return _build(problem, obs_cam, obs_pt, obs_valid, obs_uv, obs_sigma2, obs_depth)
+
+
+def _build(problem, obs_cam, obs_pt, obs_valid, obs_uv, obs_sigma2, obs_depth) -> PMProblem | None:
+    K = problem.cam_pose.shape[0]
+    P = problem.pt_pos.shape[0]
+    live = obs_valid & (obs_pt >= 0) & (obs_pt < P) & (obs_cam >= 0)
+    n_live = int(live.sum())
+    if n_live < 1:
+        return None
+    counts = np.bincount(obs_pt[live], minlength=P)
+    MO = int(counts.max())
+    if MO == 0:
+        return None
+    MO = bucket(MO, 4)
+
+    def guards_ok(mo: int) -> bool:
+        cnt = np.minimum(counts, mo)
+        nl = int(cnt.sum())
+        if P * mo > 2.5 * nl:
+            return False  # too skewed for a uniform grid
+        # the pair tables: the sum of deg^2 is the contribution count
+        n_contrib = int((cnt.astype(np.int64) * (cnt - 1) // 2).sum())
+        return n_contrib <= 4 * nl * max(mo, 1)
+
+    # the skew cap: a loopy map's few points seen from the whole loop blow up
+    # MO and the pairs; cap the observations per point at the largest bucket
+    # that passes both guards, and leave the excess out of this solve (the
+    # first MO per point in (point, camera) order are kept; ba_solve gives
+    # the dropped ones an exact chi2 at the end)
+    dropped = 0
+    if not guards_ok(MO):
+        mo_fit = MO
+        while mo_fit > 4 and not guards_ok(mo_fit):
+            mo_fit //= 2
+        if mo_fit <= 4 or not guards_ok(mo_fit):
+            return None
+        dropped = n_live - int(np.minimum(counts, mo_fit).sum())
+        if dropped > 0.2 * n_live:
+            return None  # capping would discard too much of the problem
+        MO = mo_fit
+
+    # ---- the uniform (P, MO) grid, observations sorted by (point, camera)
+    lv = np.nonzero(live)[0]
+    lv = lv[np.lexsort((obs_cam[lv], obs_pt[lv]))]
+    pts = obs_pt[lv]
+    slot = np.arange(len(lv)) - np.searchsorted(pts, pts)  # rank within point
+    if dropped:
+        keep = slot < MO
+        lv, pts, slot = lv[keep], pts[keep], slot[keep]
+    o_src = np.full((P, MO), -1, np.int64)
+    o_src[pts, slot] = lv
+    filled = o_src >= 0
+    safe = np.where(filled, o_src, 0)
+    o_cam = np.where(filled, obs_cam[safe], K).astype(np.int64)
+    o_uv = obs_uv[safe] * filled[..., None]
+    o_sigma2 = np.where(filled, obs_sigma2[safe], 1.0)
+    o_depth = np.where(filled, obs_depth[safe], 0.0)
+
+    # ---- camera -> flat observation-slot table
+    flat_cam = o_cam.reshape(-1)
+    fl_live = np.nonzero(flat_cam < K)[0]
+    fl_sorted = fl_live[np.argsort(flat_cam[fl_live], kind="stable")]
+    ccounts = np.bincount(flat_cam[fl_live], minlength=K)
+    CO = bucket(max(int(ccounts.max()), 1))
+    cam_obs = np.full((K, CO), -1, np.int64)
+    cidx = flat_cam[fl_sorted]
+    cam_obs[cidx, np.arange(len(fl_sorted)) - np.searchsorted(cidx, cidx)] = fl_sorted
+
+    # ---- unique camera-pair tables (the off-diagonal Schur blocks):
+    # contributions (p, m1, m2) with cam(m1) < cam(m2), both live
+    m1g, m2g = np.meshgrid(np.arange(MO), np.arange(MO), indexing="ij")
+    c1 = o_cam[:, m1g]  # (P, MO, MO)
+    c2 = o_cam[:, m2g]
+    sel = (c1 < K) & (c2 < K) & (c1 < c2)
+    pidx, mm1, mm2 = np.nonzero(sel)
+    keys = c1[sel].astype(np.int64) * K + c2[sel]
+    uniq, inv = np.unique(keys, return_inverse=True)
+    NP = len(uniq)
+    if NP == 0:
+        pair_m1 = np.full((1, 1), -1, np.int64)
+        pair_m2 = np.full((1, 1), -1, np.int64)
+        pair_i = np.zeros(1, np.int64)
+        pair_j = np.zeros(1, np.int64)
+    else:
+        porder = np.argsort(inv, kind="stable")
+        inv_s = inv[porder]
+        CP = bucket(int(np.bincount(inv, minlength=NP).max()))
+        pair_m1 = np.full((NP, CP), -1, np.int64)
+        pair_m2 = np.full((NP, CP), -1, np.int64)
+        pslot = np.arange(len(inv_s)) - np.searchsorted(inv_s, inv_s)
+        pair_m1[inv_s, pslot] = (pidx * MO + mm1)[porder]
+        pair_m2[inv_s, pslot] = (pidx * MO + mm2)[porder]
+        pair_i = uniq // K
+        pair_j = uniq % K
+        # rows padded to the bucket are all -1: zero blocks no vertex refers to
+        NPb = bucket(NP)
+        if NPb > NP:
+            pad_rows = np.full((NPb - NP, CP), -1, np.int64)
+            pair_m1 = np.concatenate([pair_m1, pad_rows])
+            pair_m2 = np.concatenate([pair_m2, pad_rows])
+
+    # ---- per-vertex pair membership (the PCG matvec)
+    v_all = np.concatenate([pair_i, pair_j])
+    other = np.concatenate([pair_j, pair_i])
+    pid = np.concatenate([np.arange(len(pair_i))] * 2)
+    trans = np.concatenate([np.zeros(len(pair_i), bool), np.ones(len(pair_j), bool)])
+    vorder = np.argsort(v_all, kind="stable")
+    v_s = v_all[vorder]
+    PB = bucket(max(int(np.bincount(v_all, minlength=K).max()), 1), 4)
+    vp_pair = np.full((K, PB), -1, np.int64)
+    vp_other = np.zeros((K, PB), np.int64)
+    vp_trans = np.zeros((K, PB), bool)
+    vslot = np.arange(len(v_s)) - np.searchsorted(v_s, v_s)
+    vp_pair[v_s, vslot] = pid[vorder]
+    vp_other[v_s, vslot] = other[vorder]
+    vp_trans[v_s, vslot] = trans[vorder]
+
+    dev = problem.cam_pose.device
+
+    def t(a, dtype):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+    return PMProblem(
+        cam_pose=problem.cam_pose, cam_fixed=problem.cam_fixed, cam_valid=problem.cam_valid,
+        pt_pos=problem.pt_pos, pt_valid=problem.pt_valid,
+        o_cam=t(o_cam, torch.int64), o_uv=t(o_uv.astype(np.float32), torch.float32),
+        o_sigma2=t(o_sigma2.astype(np.float32), torch.float32), o_depth=t(o_depth.astype(np.float32), torch.float32),
+        o_valid=t(filled, torch.bool), o_src=t(o_src, torch.int64), bf=problem.bf,
+        cam_obs=t(cam_obs, torch.int64), pair_m1=t(pair_m1, torch.int64), pair_m2=t(pair_m2, torch.int64),
+        vp_pair=t(vp_pair, torch.int64), vp_other=t(vp_other, torch.int64), vp_trans=t(vp_trans, torch.bool),
+        dropped_obs=int(dropped),
+    )
+
+
+def _residual_jac_pm(pm: PMProblem, cam_pose, pt_pos, cam: CameraParams):
+    """(P, MO)-shaped residuals (u, v, and the stereo u_r masked to zero for
+    mono rows) and Jacobians; the point enters by broadcast. Poses are
+    gathered as flat (V, 12) rows.
+    -> r (P, MO, 3), Jc (P, MO, 3, 6), Jp (P, MO, 3, 3), q (P, MO, 3), row_mask."""
+    V = cam_pose.shape[0]
+    P, MO = pm.o_cam.shape
+    Tg = _pad_row(cam_pose[:, :3, :].reshape(V, 12))[pm.o_cam].reshape(P, MO, 3, 4)
+    R = Tg[..., :3]
+    t = Tg[..., 3]
+    q = torch.einsum("pmij,pj->pmi", R, pt_pos) + t
+    inv_z = 1.0 / q[..., 2].clamp(min=1e-6)
+    u_hat = cam.fx * q[..., 0] * inv_z + cam.cx
+    v_hat = cam.fy * q[..., 1] * inv_z + cam.cy
+    stereo = pm.o_depth > 0
+    bf = pm.bf
+    ur_obs = pm.o_uv[..., 0] - bf / pm.o_depth.clamp(min=1e-6)
+    ur_hat = u_hat - bf * inv_z
+    r = torch.stack(
+        [u_hat - pm.o_uv[..., 0], v_hat - pm.o_uv[..., 1], torch.where(stereo, ur_hat - ur_obs, 0.0)], -1
+    )
+    zero = torch.zeros_like(inv_z)
+    du_dq = torch.stack([cam.fx * inv_z, zero, -cam.fx * q[..., 0] * inv_z**2], -1)
+    dv_dq = torch.stack([zero, cam.fy * inv_z, -cam.fy * q[..., 1] * inv_z**2], -1)
+    dur_dq = du_dq + torch.stack([zero, zero, bf * inv_z**2], -1)
+    J_proj = torch.stack([du_dq, dv_dq, dur_dq], -2)  # (P, MO, 3, 3)
+    eye = torch.eye(3, dtype=q.dtype, device=q.device).expand(P, MO, 3, 3)
+    Jc = J_proj @ torch.cat([eye, -_hat(q)], -1)  # (P, MO, 3, 6)
+    Jp = J_proj @ R
+    one = torch.ones_like(stereo)
+    row_mask = torch.stack([one, one, stereo], -1).to(torch.float32)
+    return r, Jc, Jp, q, row_mask
+
+
+def _chi2_pm(pm: PMProblem, cam_pose, pt_pos, cam):
+    r, _, _, q, row_mask = _residual_jac_pm(pm, cam_pose, pt_pos, cam)
+    return (r * r * row_mask).sum(-1) / pm.o_sigma2.clamp(min=1e-9), q
+
+
+def _delta2(pm: PMProblem) -> torch.Tensor:
+    return torch.where(pm.o_depth > 0, CHI2_3D, CHI2_2D)
+
+
+def _cost_pm(pm: PMProblem, cam_pose, pt_pos, cam, active, robust: bool):
+    c2, _ = _chi2_pm(pm, cam_pose, pt_pos, cam)
+    if robust:
+        delta2 = _delta2(pm)
+        rho = torch.where(c2 <= delta2, c2, 2.0 * torch.sqrt(delta2 * c2.clamp(min=1e-12)) - delta2)
+    else:
+        rho = c2
+    return torch.where(active, rho, 0.0).sum()
+
+
+def _identity(x):
+    return x
+
+
+def pm_staged_lm(pm: PMProblem, cam: CameraParams, iters: int = 20, stages: int = 2, cg_iters: int = 32,
+                 relin_every: int = 6, psum=_identity):
+    """Staged adaptive LM with block-sparse Schur PCG and lazy
+    relinearization: `stages` rounds of n_macro linearizations, each
+    followed by ceil(iters / n_macro) LM steps (at least `iters` steps, as
+    many when n_macro divides iters); between rounds the outliers are
+    demoted and the Huber kernel dropped.
+    -> (cam_pose, pt_pos, costs, c2 (P, MO), bad (P, MO))."""
+    V = pm.cam_pose.shape[0]
+    P, MO = pm.o_cam.shape
+    dev = pm.cam_pose.device
+    free = pm.cam_valid & ~pm.cam_fixed
+    co = torch.where(pm.cam_obs >= 0, pm.cam_obs, P * MO)
+    eye3 = torch.eye(3, device=dev)
+    eye6 = torch.eye(6, device=dev)
+
+    def cam_reduce(contrib):
+        """(P, MO, ...) per-observation contributions -> (V, ...), gathered
+        as flat rows through cam_obs and summed."""
+        tail = contrib.shape[2:]
+        red = _pad_row(contrib.reshape(P * MO, -1))[co].sum(1)
+        return red.reshape((V,) + tail)
+
+    def relinearize(w_info, robust, cam_pose, pt_pos, lam):
+        """The Jacobian-derived quantities of one linearization."""
+        r, Jc, Jp, q, row_mask = _residual_jac_pm(pm, cam_pose, pt_pos, cam)
+        c2 = (r * r * row_mask).sum(-1) / pm.o_sigma2.clamp(min=1e-9)
+        w = w_info * torch.clamp(torch.sqrt(_delta2(pm) / c2.clamp(min=1e-12)), max=1.0) if robust else w_info
+        Jc = Jc * row_mask[..., None]
+        Jp = Jp * row_mask[..., None]
+        A = torch.einsum("pmij,pmik,pm->pmjk", Jc, Jp, w)  # (P, MO, 6, 3)
+        Hpp = torch.einsum("pmij,pmik,pm->pjk", Jp, Jp, w)  # (P, 3, 3)
+        Hpp_d = Hpp + lam * eye3 * torch.clamp(Hpp.diagonal(dim1=-2, dim2=-1).sum(-1)[:, None, None] / 3.0, min=1.0)
+        Hpp_inv = torch.where(pm.pt_valid[:, None, None], _inv3x3(Hpp_d), 0.0)
+        Y = torch.einsum("pmij,pjk->pmik", A, Hpp_inv)  # (P, MO, 6, 3)
+        # Hv and the exact Schur diagonal DK in one packed reduction
+        Hc_o = torch.einsum("pmij,pmik,pm->pmjk", Jc, Jc, w).reshape(P, MO, 36)
+        DK_o = torch.einsum("pmij,pmkj->pmik", Y, A).reshape(P, MO, 36)
+        packed = psum(cam_reduce(torch.cat([Hc_o, DK_o], -1)))  # (V, 72)
+        Hv = packed[:, :36].reshape(V, 6, 6)
+        DK = packed[:, 36:].reshape(V, 6, 6)
+        # the off-diagonal blocks: flat-row gathers through the pair tables
+        t1 = torch.where(pm.pair_m1 >= 0, pm.pair_m1, P * MO)
+        t2 = torch.where(pm.pair_m2 >= 0, pm.pair_m2, P * MO)
+        NPn, CP = t1.shape
+        Yg = _pad_row(Y.reshape(P * MO, 18))[t1].reshape(NPn, CP, 6, 3)
+        Ag = _pad_row(A.reshape(P * MO, 18))[t2].reshape(NPn, CP, 6, 3)
+        S_blocks = psum(torch.einsum("bcij,bckj->bik", Yg, Ag))  # (NP, 6, 6)
+        return Jc, Jp, w, A, Hpp_inv, Y, Hv, DK, S_blocks
+
+    def inner_step(w_info, obs_active, robust, frozen, cam_pose, pt_pos, lam, cost_prev):
+        """One LM step on the (possibly stale) linearization, with the
+        gradients and the acceptance cost of the current state."""
+        Jc, Jp, w, A, Hpp_inv, Y, Hv, DK, S_blocks = frozen
+        r, _, _, _, row_mask = _residual_jac_pm(pm, cam_pose, pt_pos, cam)
+        r = r * row_mask
+        bp = torch.einsum("pmij,pmi,pm->pj", Jp, r, w)  # (P, 3)
+        bc_o = torch.einsum("pmij,pmi,pm->pmj", Jc, r, w)  # (P, MO, 6)
+        bcorr_o = torch.einsum("pmij,pj->pmi", Y, bp)  # (P, MO, 6)
+        packed = psum(cam_reduce(torch.cat([bc_o, bcorr_o], -1)))  # (V, 12)
+        bv = packed[:, :6]
+        b_corr = -packed[:, 6:]
+        HvD = Hv + lam * eye6 * torch.clamp(Hv.diagonal(dim1=-2, dim2=-1).sum(-1)[:, None, None] / 6.0, min=1.0)
+        b_f = torch.where(free[:, None], bv + b_corr, 0.0)
+
+        # ---- PCG on the block-sparse reduced system
+        NPn = S_blocks.shape[0]
+        Sg = _pad_row(S_blocks)[torch.where(pm.vp_pair >= 0, pm.vp_pair, NPn)]  # (V, PB, 6, 6)
+        Sg = torch.where(pm.vp_trans[:, :, None, None], Sg.transpose(-1, -2), Sg)
+        other = pm.vp_other.clamp(0, V - 1)
+        pair_ok = (pm.vp_pair >= 0)[..., None]
+        D_pre = HvD - DK
+
+        def matvec(x):
+            y = torch.einsum("vij,vj->vi", D_pre, x)
+            xg = torch.where(pair_ok, x[other], 0.0)  # (V, PB, 6)
+            y = y - torch.einsum("vbij,vbj->vi", Sg, xg)
+            return torch.where(free[:, None], y, x)
+
+        delta_v = pcg(matvec, b_f, block_jacobi(D_pre, free), cg_iters)
+        delta_v = torch.where(free[:, None], delta_v, 0.0)
+
+        # ---- back-substitution, point-major
+        dcg = _pad_row(delta_v)[pm.o_cam]  # (P, MO, 6); pads hit the zero row
+        t_contrib = torch.einsum("pmij,pmi->pj", A, dcg)
+        delta_p = torch.einsum("pij,pj->pi", Hpp_inv, bp - t_contrib)
+        delta_p = torch.where(pm.pt_valid[:, None], delta_p, 0.0)
+
+        new_cam = torch.where(free[:, None, None], se3_exp(-delta_v) @ cam_pose, cam_pose)
+        new_pt = pt_pos - delta_p
+        new_cost = psum(_cost_pm(pm, new_cam, new_pt, cam, obs_active, robust))
+        improved = new_cost < cost_prev
+        cam_pose = torch.where(improved, new_cam, cam_pose)
+        pt_pos = torch.where(improved, new_pt, pt_pos)
+        cost = torch.where(improved, new_cost, cost_prev)
+        lam = torch.where(improved, lam * 0.5, lam * 8.0).clamp(1e-7, 1e6)
+        return cam_pose, pt_pos, lam, cost
+
+    cam_pose, pt_pos = pm.cam_pose, pm.pt_pos
+    active = pm.o_valid
+    all_costs = []
+    n_macro = max(1, -(-iters // max(1, relin_every)))
+    R = max(1, -(-iters // n_macro))
+    for stage in range(stages):
+        robust = stage == 0
+        w_info = active.to(torch.float32) / pm.o_sigma2.clamp(min=1e-9)
+        cost = psum(_cost_pm(pm, cam_pose, pt_pos, cam, active, robust))
+        lam = torch.tensor(1e-4, dtype=torch.float32, device=dev)
+        for _ in range(n_macro):
+            frozen = relinearize(w_info, robust, cam_pose, pt_pos, lam)
+            for _ in range(R):
+                cam_pose, pt_pos, lam, cost = inner_step(w_info, active, robust, frozen, cam_pose, pt_pos, lam, cost)
+                all_costs.append(cost)
+        if stage < stages - 1:
+            c2_s, q_s = _chi2_pm(pm, cam_pose, pt_pos, cam)
+            active = pm.o_valid & (c2_s <= _delta2(pm)) & (q_s[..., 2] > 0)
+    c2, q = _chi2_pm(pm, cam_pose, pt_pos, cam)
+    bad = pm.o_valid & ((c2 > _delta2(pm)) | (q[..., 2] <= 0))
+    return cam_pose, pt_pos, torch.stack(all_costs), c2, bad
+
+
+# ---- content-keyed cache of built problems -----------------------------
+_PM_CACHE: dict = {}
+
+
+def pm_problem_for(problem) -> PMProblem | None:
+    """`build_pm_problem` with a small cache keyed by the observations'
+    content (graph and measurements) and the problem's shape: repeated
+    solves of one observation set reuse its tables, with the poses and
+    points of the problem at hand."""
+    if problem.mk_valid is not None and bool(problem.mk_valid.any()):
+        return None
+    host = fetch_to_host(
+        problem.obs_cam, problem.obs_pt, problem.obs_valid, problem.obs_uv, problem.obs_sigma2, problem.obs_depth
+    )
+    h = hashlib.blake2b(digest_size=16)
+    for a in host:
+        h.update(a.tobytes())
+    key = (h.hexdigest(), problem.cam_pose.shape[0], problem.pt_pos.shape[0], str(problem.cam_pose.device))
+    if key in _PM_CACHE:
+        cached = _PM_CACHE[key]
+        if cached is None:
+            return None
+        return dataclasses.replace(
+            cached, cam_pose=problem.cam_pose, cam_fixed=problem.cam_fixed, cam_valid=problem.cam_valid,
+            pt_pos=problem.pt_pos, pt_valid=problem.pt_valid,
+        )
+    pm = _build(problem, *host)
+    if len(_PM_CACHE) > 8:
+        _PM_CACHE.clear()
+    _PM_CACHE[key] = pm
+    return pm

@@ -10,12 +10,33 @@ keyframe after a marker-only init, which shares no points), duplicate fusion
 (kernel B1 at a 3 px radius over the whole point arena), recent-point
 culling, local BA (marker vertices included), the point statistics,
 keyframe culling, the keyframe database and loop closure (markers first,
-then keypoints; a Sim3 correction with seam fusion, then a global BA). The
-asynchronous mapping worker raises NotImplementedError, naming its ROADMAP
-item.
+then keypoints; a Sim3 correction with seam fusion, then a global BA).
+
+Two dispatch modes, as the reference's `runSequential` switch: sequential
+(deterministic), where the System calls `new_keyframe` inline between frames,
+and async, where a mapping worker thread consumes a bounded queue of keyframe
+candidates and the tracker's point-counter bumps while tracking goes on over
+map snapshots (`Map.snapshot`). The worker is the map's single writer; the
+pose corrections its keyframes bring (local BA, loop closure, a marker
+rescale) are published as an update the tracker consumes at its next frame.
+As in the reference: counter bumps are dropped under backpressure, at most
+two keyframe candidates are queued or in flight, a running BA is never
+interrupted, and a worker exception is kept and raised by `wait_idle`.
+Unlike the reference, a tracker that needs a keyframe while the worker
+still maps one waits for it (`wait_for_worker`), then hands over the frame
+it tracks now: the two threads share the GIL, so beside the tracker the
+worker maps at about 40% of its sequential speed, and a tracker that
+tracked on (dropping candidates, or queueing ones that went stale) left it
+a map sparser and later than the sequential one (tools/port/async_pace.py).
+Frames that need no keyframe still track while the worker maps. Both
+threads launch on the one default CUDA stream, so their device work is
+ordered and the caching allocator needs no stream bookkeeping.
 """
 
 from __future__ import annotations
+
+import queue
+import threading
 
 import numpy as np
 import torch
@@ -139,12 +160,150 @@ class MapManager:
         self.loop_detector = LoopDetector(params, cam, self.kfdb)
         self.n_insertions = 0  # new_keyframe calls (each launches B1 once, to fuse)
         self.loop_closures = 0  # loops accepted (the tracker adopts the corrected pose)
+        # async dispatch (start_async)
+        self._queue: queue.Queue | None = None
+        self._thread: threading.Thread | None = None
+        self._idle = threading.Event()
+        self._idle.set()
+        self._lock = threading.Lock()  # the pending update and the candidate count
+        self._mapped = threading.Condition(self._lock)  # notified when a candidate leaves the worker
+        self._pending_update: dict | None = None
+        self._worker_error: BaseException | None = None
+        self._pending_kf = 0  # keyframe candidates queued or in flight
 
+    _THREAD_STATE = ("_queue", "_thread", "_idle", "_lock", "_mapped")
+
+    def __getstate__(self) -> dict:
+        """A copy (or pickle) of a sequential manager; a running worker
+        cannot be copied."""
+        if self._thread is not None:
+            raise TypeError("an async MapManager cannot be copied while its worker runs")
+        return {k: v for k, v in self.__dict__.items() if k not in self._THREAD_STATE}
+
+    def __setstate__(self, state: dict) -> None:
+        self.__dict__.update(state, _queue=None, _thread=None, _idle=threading.Event(), _lock=threading.Lock())
+        self._mapped = threading.Condition(self._lock)
+        self._idle.set()
+
+    # -- async dispatch (the reference's mapping thread) ----------------
     def start_async(self, world_map: Map) -> None:
-        raise NotImplementedError(
-            "the asynchronous mapping worker (runSequential=False) is not ported yet "
-            "(ROADMAP.md, Queue 1 item 6: the async mapper)"
-        )
+        """Start the mapping worker (runSequential=False)."""
+        if self._thread is not None:
+            return
+        self._queue = queue.Queue(maxsize=4)  # the reference's bounded TSQueue
+        self._thread = threading.Thread(target=self._worker_loop, args=(world_map,), daemon=True,
+                                        name="ucoslam-mapper")
+        self._thread.start()
+
+    def stop_async(self) -> None:
+        """Stop the worker once it has run what was queued before the stop.
+        The join has no timeout (the reference's has 60 s): a long loop
+        correction or global BA in flight still writes the map, so no caller
+        returns while it runs."""
+        if self._thread is None:
+            return
+        self._queue.put(("stop", None))
+        self._thread.join()
+        self._thread = None
+        self._queue = None
+
+    @property
+    def is_async(self) -> bool:
+        return self._thread is not None
+
+    def busy(self) -> bool:
+        """True when two keyframe candidates are queued or in flight: the
+        tracker then keeps tracking and asks again later (counter bumps do
+        not count)."""
+        return self._pending_kf >= 2
+
+    def wait_for_worker(self) -> None:
+        """Block until no keyframe candidate is queued or in flight (the
+        tracker's backpressure; module docstring). Every candidate leaves the
+        worker, mapped or failed, so the wait ends."""
+        with self._mapped:
+            self._mapped.wait_for(lambda: self._pending_kf == 0)
+
+    def wait_idle(self) -> None:
+        """Block until the worker has drained its queue; raise the exception
+        a worker step raised, if any."""
+        if self._queue is None:
+            return
+        self._queue.join()
+        self._idle.wait()
+        if self._worker_error is not None:
+            err, self._worker_error = self._worker_error, None
+            raise err
+
+    def enqueue_keyframe(self, frame: Frame, **host) -> bool:
+        """Hand a keyframe candidate (and the tracker's host copies of its
+        ids/depth/valid, `new_keyframe`'s host_*) to the worker; False when
+        the queue is full."""
+        with self._lock:
+            self._pending_kf += 1
+        try:
+            self._queue.put_nowait(("kf", (frame, host)))
+            return True
+        except queue.Full:
+            with self._lock:
+                self._pending_kf -= 1
+            return False
+
+    def enqueue_stats(self, vis_mask, seen_mask) -> None:
+        """Route the tracker's point-counter bumps through the single writer;
+        dropped when the queue is full, or when the point arena grew since
+        the tracker's snapshot (they only tune point culling)."""
+        try:
+            self._queue.put_nowait(("stats", (vis_mask, seen_mask)))
+        except queue.Full:
+            pass
+
+    def consume_update(self) -> dict | None:
+        """Pop the pending pose correction: {'dT': the keyframe's pose before
+        its mapping^-1 @ after (4x4), 'scale': float, 'big_change': bool},
+        or None."""
+        with self._lock:
+            upd, self._pending_update = self._pending_update, None
+        return upd
+
+    def _publish_update(self, pose_before: np.ndarray, pose_after: np.ndarray, scale: float,
+                        big_change: bool) -> None:
+        dT = np.linalg.inv(pose_before) @ pose_after
+        with self._lock:
+            prev = self._pending_update
+            if prev is not None:  # compose: corrections apply oldest first
+                dT = prev["dT"] @ dT
+                scale = prev["scale"] * scale
+                big_change = big_change or prev["big_change"]
+            self._pending_update = {"dT": dT.astype(np.float32), "scale": scale, "big_change": big_change}
+
+    def _worker_loop(self, world_map: Map) -> None:
+        while True:
+            kind, payload = self._queue.get()
+            self._idle.clear()
+            try:
+                if kind == "stop":
+                    return
+                if kind == "stats":
+                    if payload[0].shape[0] == world_map.state.P:  # not from before a growth of the arena
+                        world_map.bump_point_stats(*payload)
+                elif kind == "kf":
+                    frame, host = payload
+                    pose_before = frame.pose_f2g.cpu().numpy()
+                    self.last_scale_correction = 1.0
+                    loops_before = self.loop_closures
+                    kf_slot = self.new_keyframe(world_map, frame, **host)
+                    self._publish_update(pose_before, world_map.h("kf_pose")[kf_slot],
+                                         self.last_scale_correction, self.loop_closures != loops_before)
+            except BaseException as e:  # raised by wait_idle
+                self._worker_error = e
+            finally:
+                if kind == "kf":
+                    with self._mapped:
+                        self._pending_kf -= 1
+                        self._mapped.notify_all()
+                self._idle.set()
+                self._queue.task_done()
 
     def new_keyframe(self, world_map: Map, frame: Frame, host_ids=None, host_depth=None, host_valid=None) -> int:
         """Insert `frame` as a keyframe and grow the map around it. host_*:

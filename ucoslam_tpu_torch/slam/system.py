@@ -1,9 +1,15 @@
 """Top-level SLAM orchestration and the tracking state machine.
 
-Port of `ucoslam_tpu/slam/system.py`, sequential mode (`runSequential`):
-per frame, initialize from two views while the map is empty, else track
-with the motion-model prior, decide on a keyframe and hand it to the
-MapManager inline; LOCALIZATION mode tracks without mapping. A lost frame
+Port of `ucoslam_tpu/slam/system.py`: per frame, initialize from two views
+while the map is empty, else track with the motion-model prior, decide on a
+keyframe and hand it to the MapManager, inline in sequential mode
+(`runSequential`, deterministic) or to its mapping worker in async mode;
+LOCALIZATION mode tracks without mapping. In async mode a frame tracks
+against a snapshot of the map taken at its head, first adopting the pose
+correction the worker published for the last keyframe it mapped; a
+frame that needs a keyframe waits until the worker is idle; the
+point-counter bumps go to the worker, and there is no re-seed (map writes
+belong to the worker). A lost frame
 relocalizes (BoW candidates through the keyframe database, or brute force
 for a dummy one), and when that fails the frame's markers with a map pose
 give a pose to track from, or the pose itself; after
@@ -13,8 +19,7 @@ tracker adopts the corrected keyframe pose, and after a marker rescale of
 the map it rescales its own motion model. Markers initialize the map (one
 unambiguous frame, or two frames), or make a keypoint init metric (the
 hybrid init); a stereo or RGB-D frame initializes a metric map alone, or
-the frame stays uninitialized. Not ported, raising NotImplementedError that
-names its ROADMAP item: the async mapper.
+the frame stays uninitialized.
 """
 
 from __future__ import annotations
@@ -95,15 +100,20 @@ class System:
     # -- main entry -----------------------------------------------------
     def process_frame(self, frame: Frame) -> np.ndarray | None:
         """Process one extracted frame; returns pose_f2g or None if lost."""
+        is_async = self.manager.is_async
+        if is_async:
+            self._consume_map_update()
         if self.map.n_keyframes == 0:
             if self.mode == Mode.LOCALIZATION:
                 return None
             return self._try_initialize(frame)
 
+        # async: one consistent state for the whole frame, whatever the worker writes
+        view = self.map.snapshot() if is_async else self.map
         if self.state == TrackingState.TRACKING:
-            res = self.tracker.track(self.map, frame, self._prior())
+            res = self.tracker.track(view, frame, self._prior())
         elif self.params.reLocalizationWithKeyPoints:
-            res = self.tracker.relocalize(self.map, frame, kfdb=self.manager.kfdb)
+            res = self.tracker.relocalize(view, frame, kfdb=self.manager.kfdb)
         else:
             res = TrackResult(False, None, frame, 0, 0, np.zeros(0, np.int32))
 
@@ -112,10 +122,10 @@ class System:
         ):
             # the pose from the observed markers with a map pose, then a
             # keypoint track from it; the marker pose itself if that fails
-            mk_pose = best_pose_from_valid_markers(self.map, frame.markers, self.cam)
+            mk_pose = best_pose_from_valid_markers(view, frame.markers, self.cam)
             if mk_pose is not None:
                 self.n_marker_poses += 1
-                retry = self.tracker.track(self.map, frame, torch.from_numpy(mk_pose).to(self.device))
+                retry = self.tracker.track(view, frame, torch.from_numpy(mk_pose).to(self.device))
                 if retry.ok:
                     res = retry
                 else:
@@ -143,11 +153,26 @@ class System:
         self._update_motion_model(pose)
         self.frames_since_kf += 1
         if res.vis_mask is not None:
-            self.map.bump_point_stats(res.vis_mask, res.seen_mask)
+            if is_async:
+                self.manager.enqueue_stats(res.vis_mask, res.seen_mask)
+            else:
+                self.map.bump_point_stats(res.vis_mask, res.seen_mask)
 
         need_kf = self.mode == Mode.SLAM and self._need_keyframe(res)
         # running max of tracked inliers since the last keyframe, after the decision
         self.last_kf_inliers = max(self.last_kf_inliers, res.n_inliers)
+        if is_async:
+            if need_kf:
+                # a keyframe goes to an idle worker (backpressure: MapManager)
+                self.manager.wait_for_worker()
+            if need_kf and self.manager.enqueue_keyframe(
+                res.frame, host_ids=res.host_ids, host_depth=res.host_depth, host_valid=res.host_valid
+            ):
+                self.frames_since_kf = 0
+                self.last_kf_inliers = max(res.n_inliers, 1)
+                self._last_kf_rot = pose[:3, :3].copy()
+            self._log(frame, pose, res.n_inliers)
+            return pose
         if need_kf:
             self.manager.last_scale_correction = 1.0
             loops_before = self.manager.loop_closures
@@ -187,6 +212,7 @@ class System:
         if (
             p.reseedAfterLostFrames <= 0
             or self.mode != Mode.SLAM
+            or self.manager.is_async  # map writes belong to the worker
             or self._lost_streak < p.reseedAfterLostFrames
             or self._dead_pose is None
         ):
@@ -356,6 +382,32 @@ class System:
             "n_points": self.map.n_points,
             "n_kf": self.map.n_keyframes,
         })
+
+    def _consume_map_update(self) -> None:
+        """Adopt the pose correction the worker published: the keyframe the
+        last candidate became moved (local BA, a loop, a rescale), so the
+        tracker's pose moves with it. A loop or a rescale resets the motion
+        model; otherwise the previous pose moves too, so the velocity holds."""
+        upd = self.manager.consume_update()
+        if upd is None or self.pose is None:
+            return
+        self.pose = (self.pose @ upd["dT"]).astype(np.float32)
+        if upd["big_change"] or upd["scale"] != 1.0:
+            self.prev_pose = None
+            self.velocity = np.eye(4, dtype=np.float32)
+        elif self.prev_pose is not None:
+            self.prev_pose = (self.prev_pose @ upd["dT"]).astype(np.float32)
+            self.velocity = (self.pose @ np.linalg.inv(self.prev_pose)).astype(np.float32)
+
+    def wait_for_finished(self) -> None:
+        """Drain the mapping worker (async mode), raising its error if one
+        step failed, and adopt its last correction."""
+        if self.manager.is_async:
+            self.manager.wait_idle()
+            self._consume_map_update()
+
+    def shutdown(self) -> None:
+        self.manager.stop_async()
 
     # -- public control -------------------------------------------------
     def set_mode(self, mode: Mode) -> None:

@@ -157,7 +157,32 @@ Phases (each prints one line or more; any failure raises and exits non-zero):
    `globalOptimization` drains the worker first; the launch rules of phase
    5 in each pass, `process` ms p50 / p99 of
    tracking frames in both modes. Phases 10-12 run in the 60-frame run
-   only, each even when an earlier one failed.
+   only, each even when an earlier one failed;
+13. the command-line harness from PNG trees on disk: the `mono`, `rgbd`
+   (TUM, 16-bit depth) and `stereo` (EuRoC, both cameras) parity scenes,
+   60 frames (`--frames 150`: 150), written by the port's writer
+   (`write_tree`, renders made by 6 processes) into a temp dir; the first
+   frame decoded (`io.png`) equal to the render quantised as the writer
+   quantises; `apps.test_sequence.main` in-process on each tree with
+   run_parity.py's camera file and switches, held to the JAX package's
+   harness on the same trees (`data/torch_port/harness_jax.json`,
+   tools/port/harness_reference.py): both passes tracked >= JAX's - 2, the
+   pass-2 ATE <= 1.2 x JAX's + 0.002 and, for rgbd and stereo, the metric
+   ATE too; B1 and B2 launched on the card on every tree, and held to
+   their plain versions at the harness's shapes (8192 map points, 1024
+   keypoints, 1088 B2 rows) on inputs captured in each tree's run: the
+   tracker's HARNESS_CAPTURE_CALL-th B1 and B2 call and the last duplicate
+   fusion's B1 (B1 exact; B2 pose < 1e-4 and the same mask), with ms,
+   plain_ms and bound_ms; on the mono map,
+   `run_slam --mode localization --in-map` tracked >= the harness's pass 2
+   - 2, `test_reloc`'s success rate >= JAX's, and `map_export --ply --pcd
+   --markermap --pmvs` writes its files; the frontend options
+   (kptImageScaleFactor 0.5 with autoAdjustKpSensitivity) on the card and
+   the CPU over the same seven images, two of them nearly flat: the same
+   keypoints but for 1% and the same FAST thresholds. It prints the median
+   PNG decode ms a frame, steadyFPS, mappingFPS, trackingFPS and the stage
+   timers of each tree (none gated). It runs in every run, even when an
+   earlier phase failed.
 
 The kernels' times are medians of CUDA-event timings of single launches
 (B2's batched record: of one batched launch, beside C single launches).
@@ -1624,9 +1649,9 @@ def marker_loop_on(device: str) -> dict:
 
 def b2_record(b2_args: dict, rows: str, tag: str, suffix: str) -> dict:
     """Kernel B2 against its plain version on captured tracker inputs, with
-    live `rows` ("marker" corner rows, or "depth" rows of a stereo / RGB-D
-    frame): pose within 1e-4, the same mask, and its timing; the record's
-    keys end in `suffix`."""
+    live `rows` ("marker" corner rows, "depth" rows of a stereo / RGB-D
+    frame, or "keypoint" rows of a mono frame): pose within 1e-4, the same
+    mask, and its timing; the record's keys end in `suffix`."""
     import torch
     from ucoslam_tpu_torch.ops.cuda import lm_kernel
 
@@ -1656,10 +1681,14 @@ def b2_record(b2_args: dict, rows: str, tag: str, suffix: str) -> dict:
         detail = (f"live_markers={live} marker_sigma2={float(sig[-1]):.4f} (keypoint rows' median "
                   f"{float(sig[:-64][valid[:-64]].median()):.4f})")
         extra = {f"live_markers{suffix}": live}
-    else:
+    elif rows == "depth":
         live = int(((depth > 0) & valid).sum())
         detail = f"valid_rows={int(valid.sum())} rows_with_depth={live} bf={b2_args['bf']}"
         extra = {f"rows_with_depth{suffix}": live}
+    else:  # "keypoint": a mono frame's rows, markers or none among them
+        live = int(valid.sum())
+        detail = f"valid_rows={live} live_markers={int(valid[-64:].sum()) // 4}"
+        extra = {f"valid_rows{suffix}": live}
     print(f"[{tag}] B={B} {kw['iters']}x{kw['rounds']} {detail} pose_max_abs_err={err:.3e} masks equal "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound_ms:.6f} ({bound_by})")
     return {**extra, f"max_abs_err{suffix}": err, f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
@@ -2366,6 +2395,325 @@ def phase_async(scene) -> dict:
         seq_all_p50=pct(seq_run["t_track"] + seq_run["t_kf"], 50), seq_all_p99=pct(seq_run["t_track"] + seq_run["t_kf"], 99)))
 
 
+#: phase 13: the JAX package's harness on the parity scenarios' PNG trees
+#: (tools/port/harness_reference.py), keyed by frame count, then scenario
+HARNESS_REF_PATH = os.path.join(HERE, "data", "torch_port", "harness_jax.json")
+#: the trees phase 13 drives the port's harness on
+HARNESS_TREES = ("mono", "rgbd", "stereo")
+#: the 0.25 m rig of run_parity.py's `stereo` and `rgbd` scenes
+RIG_CAMERA = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480, bl=0.25)
+#: processes rendering a tree's frames (the card's host has 8 cores)
+RENDER_JOBS = 6
+
+
+def harness_scenario(name: str, frames: int) -> dict:
+    """tools/parity/run_parity.py's build_scenario for the two-pass harness:
+    the SyntheticSequence keywords, whether the camera is RIG_CAMERA (else the
+    sequence's own), the tree's layout ("tum", "tum_depth" or "euroc"), the
+    harness switches and the Params overrides of a --params file."""
+    seq = dict(n_frames=frames, n_points=1600, seed=5)
+    out = dict(seq=seq, rig=False, layout="tum", switches=[], params=None)
+    if name == "markers":
+        seq.update(n_markers=10, marker_size=0.6)
+        out["params"] = dict(aruco_markerSize=0.6)
+    elif name == "rgbd":
+        out.update(rig=True, layout="tum_depth", switches=["--rgbd"])
+    elif name == "stereo":
+        seq.update(depth_mode="stereo")
+        out.update(rig=True, layout="euroc", switches=["--stereo", "--format", "euroc"])
+    elif name == "loop":
+        seq.update(n_points=3000, trajectory="orbit_out")
+        out["switches"] = ["--recovery", "--save-every", "40"]
+    elif name == "loop_easy":
+        seq.update(n_points=2200, trajectory="sweep_back")
+    elif name != "mono":
+        raise ValueError(name)
+    if out["layout"] != "euroc":
+        out["switches"] = out["switches"] + ["--format", "tum"]
+    return out
+
+
+def write_camera_yml(path: str, cam) -> None:
+    """The camera file run_parity.py hands the harness (write_tpu_camera_yml)."""
+    with open(path, "w") as f:
+        f.write(f"fx: {float(cam.fx)}\nfy: {float(cam.fy)}\ncx: {float(cam.cx)}\ncy: {float(cam.cy)}\n"
+                f"width: {cam.width}\nheight: {cam.height}\nbl: {float(cam.bl)}\n")
+
+
+def _render_frames(args) -> list:
+    """A pool worker: the renders `write_tree`'s writer asks for, frames i0..i1."""
+    from ucoslam_tpu_torch.geometry.camera import CameraParams
+    from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
+
+    seq_kw, rig, layout, i0, i1 = args
+    seq = SyntheticSequence(cam=CameraParams.create(**RIG_CAMERA) if rig else None, **seq_kw)
+    how = {"euroc": seq.render_stereo, "tum_depth": seq.render_with_depth}.get(layout, seq.render)
+    return [how(i) for i in range(i0, i1)]
+
+
+def write_tree(name: str, frames: int, root: str):
+    """The scenario's PNG tree, written by the port's writer
+    (io.datasets.write_synthetic_*) from renders made by RENDER_JOBS
+    processes at once -> (the sequence, the harness scenario)."""
+    import concurrent.futures
+    import multiprocessing
+
+    from ucoslam_tpu_torch.geometry.camera import CameraParams
+    from ucoslam_tpu_torch.io import datasets
+    from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
+
+    sc = harness_scenario(name, frames)
+    seq = SyntheticSequence(cam=CameraParams.create(**RIG_CAMERA) if sc["rig"] else None, **sc["seq"])
+    cuts = [frames * k // RENDER_JOBS for k in range(RENDER_JOBS + 1)]
+    parts = [(sc["seq"], sc["rig"], sc["layout"], a, b) for a, b in zip(cuts, cuts[1:]) if b > a]
+    with concurrent.futures.ProcessPoolExecutor(len(parts), mp_context=multiprocessing.get_context("spawn")) as pool:
+        renders = [r for part in pool.map(_render_frames, parts) for r in part]
+    if sc["layout"] == "euroc":
+        datasets.write_synthetic_euroc(seq, root, stereo=True, renders=renders)
+    else:
+        datasets.write_synthetic_tum(seq, root, depth=sc["layout"] == "tum_depth", renders=renders)
+    return seq, sc
+
+
+#: phase 13 holds B1 and B2 to their plain versions on the inputs of the
+#: tracker's call of this number (from 1) to each, in pass 1 of each tree:
+#: the first refine of about the 21st track attempt, with the map built up
+HARNESS_CAPTURE_CALL = 41
+
+
+def harness_capture(stack: contextlib.ExitStack, call: int) -> dict:
+    """Keeps in the returned dict, while `stack` is open, the inputs of the
+    tracker's `call`-th B1 call (`b1_track`) and `call`-th B2 call (`b2`, in
+    b2_record's form), and those of the last duplicate fusion's B1
+    (`b1_fuse`): clones only, no host read and no launch."""
+    from ucoslam_tpu_torch.matching import projection
+    from ucoslam_tpu_torch.slam import mapmanager, tracker
+
+    kept, n, fusing = {}, {"b1": 0, "b2": 0}, []
+
+    def fuse(inner, *args, **kwargs):
+        fusing.append(True)
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            fusing.pop()
+
+    def match(inner, *args):
+        if fusing:
+            kept["b1_fuse"] = tuple(a.clone() for a in args)
+        else:
+            n["b1"] += 1
+            if n["b1"] == call:
+                kept["b1_track"] = tuple(a.clone() for a in args)
+        return inner(*args)
+
+    def lm(inner, pose0, X, uv, sig, valid, cam, depth=None, bf=None, iters=10, rounds=4):
+        n["b2"] += 1
+        if n["b2"] == call:
+            kept["b2"] = dict(tensors=[t.clone() for t in (pose0, X, uv, sig, valid)], cam=cam, iters=iters,
+                              rounds=rounds, depth=None if depth is None else depth.clone(), bf=bf)
+        return inner(pose0, X, uv, sig, valid, cam, depth=depth, bf=bf, iters=iters, rounds=rounds)
+
+    stack.enter_context(patched(mapmanager, "fuse_duplicates_into_kf", fuse))
+    stack.enter_context(patched(projection, "project_match", match))
+    stack.enter_context(patched(tracker, "motion_only_lm", lm))
+    return kept
+
+
+def b1_record(args: tuple, tag: str, suffix: str) -> dict:
+    """Kernel B1 against its plain version on captured inputs, exactly, and
+    its timing; the record's keys end in `suffix`."""
+    import torch
+    from ucoslam_tpu_torch.ops.cuda import match_kernel
+
+    got, want = match_kernel.project_match(*args), match_kernel.project_match_plain(*args)
+    torch.cuda.synchronize()
+    err = max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))
+    check(all(torch.equal(g, w) for g, w in zip(got, want)),
+          f"{tag}: B1 differs from its plain version (max abs err {err})")
+    ms = median_ms(lambda: match_kernel.project_match(*args), 50)
+    plain_ms = median_ms(lambda: match_kernel.project_match_plain(*args), 5)
+    bound_ms, bound_by, passing = b1_bound(args)
+    print(f"[{tag}] P={args[0].shape[0]} N={args[4].shape[0]} live_rows={int(args[3].sum())} "
+          f"keypoints={int(args[7].sum())} gated_pairs={passing} exact kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.6f} ({bound_by})")
+    return {f"max_abs_err{suffix}": err, f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+            f"bound_ms{suffix}": bound_ms, f"bound_by{suffix}": bound_by}
+
+
+def run_app(main, argv: list, log: str) -> str:
+    """One of the port's apps in-process, its standard output kept in `log`."""
+    with open(log, "w") as f, contextlib.redirect_stdout(f):
+        rc = main(argv)
+    with open(log) as f:
+        text = f.read()
+    check(rc in (0, None), f"{main.__module__} exited {rc}: {text[-500:]}")
+    return text
+
+
+def frontend_options_on_shared_arrays(images: list) -> dict:
+    """Phase 13's frontend options: kptImageScaleFactor 0.5 with
+    autoAdjustKpSensitivity, the same images (two frames, three nearly flat
+    ones, two frames) through a FrameExtractor on the card and one on the
+    CPU -> per frame the keypoints on each side and those of one side only
+    (same octave, xy within 1e-3 px), and each side's FAST thresholds."""
+    import numpy as np
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.features.frame_extractor import FrameExtractor
+    from ucoslam_tpu_torch.geometry.camera import CameraParams
+
+    params = Params().replace(kptImageScaleFactor=0.5, autoAdjustKpSensitivity=True, detectMarkers=False,
+                              maxKeyPointsPerFrame=1024)
+    cam = CameraParams.create(500.0, 500.0, 320.0, 240.0)
+    flat = np.full((480, 640), 40.0, np.float32) + (np.arange(640)[None, :] % 7)
+    frames = images[:2] + [flat] * 3 + images[2:4]
+    ext = {d: FrameExtractor(params, cam, d) for d in ("cuda", "cpu")}
+    out = dict(card=[], cpu=[], one_side=[], thr_card=[], thr_cpu=[])
+    for i, img in enumerate(frames):
+        f = {d: e.process(img, i) for d, e in ext.items()}
+        kp = {}
+        for d, fr in f.items():
+            v = fr.valid.cpu().numpy()
+            kp[d] = (fr.xy.cpu().numpy()[v], fr.octave.cpu().numpy()[v])
+        (xa, oa), (xb, ob) = kp["cuda"], kp["cpu"]
+        dist = np.abs(xa[:, None, :] - xb[None, :, :]).max(-1) + np.where(oa[:, None] != ob[None, :], np.inf, 0.0)
+        both = int((dist.min(1, initial=np.inf) <= 1e-3).sum()) if len(xa) and len(xb) else 0
+        out["card"].append(len(xa))
+        out["cpu"].append(len(xb))
+        out["one_side"].append(len(xa) + len(xb) - 2 * both)
+        out["thr_card"].append(ext["cuda"].orb.fast_threshold)
+        out["thr_cpu"].append(ext["cpu"].orb.fast_threshold)
+    return out
+
+
+def phase_harness(frames: int, workdir: str) -> dict:
+    """Phase 13 -> the kernels' launches on its main paths (the harness on
+    each tree, run_slam's localization, test_reloc), the harness's numbers,
+    and B1's and B2's records at the harness's shapes (`b1`, `b2`)."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.apps import map_export, run_slam, test_reloc, test_sequence
+    from ucoslam_tpu_torch.apps.compare_logs import evaluate
+    from ucoslam_tpu_torch.io import datasets
+
+    with open(HARNESS_REF_PATH) as f:
+        refs = json.load(f)["runs"][str(frames)]
+    launches = {"B1": 0, "B2": 0, "B2_batched": 0}
+    b1, b2 = {}, {}
+
+    def add(n):
+        for k in launches:
+            launches[k] += n[k]
+
+    out, mono_images = {}, None
+    for name in HARNESS_TREES:
+        ref = refs[name]
+        root, run_dir = os.path.join(workdir, f"h13_{name}"), os.path.join(workdir, f"h13_{name}_run")
+        t0 = time.perf_counter()
+        seq, sc = write_tree(name, frames, root)
+        write_s = time.perf_counter() - t0
+        # the decoded first frame is the render, quantised as the writer quantises
+        if sc["layout"] == "euroc":
+            ds = datasets.EurocSequence.open(root, stereo=True)
+            got = [ds.read(0), ds.read(0, 1)]
+            want = [np.clip(x, 0, 255).astype(np.uint8) for x in seq.render_stereo(0)]
+        else:
+            ds = datasets.TumSequence.open(root)
+            got, want = [ds.read_rgb(0)], [np.clip(seq.render(0), 0, 255).astype(np.uint8)]
+            if sc["layout"] == "tum_depth":
+                img, z = seq.render_with_depth(0)
+                got.append(ds.read_depth_for(0))
+                want.append(np.clip(np.asarray(z) * 5000.0, 0, 65535).astype(np.uint16))
+        check(all(g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(got, want)),
+              f"13 {name}: the decoded first frame is not the quantised render")
+        if name == "mono":
+            mono_images = [datasets.TumSequence.open(root).read_rgb(i) for i in range(4)]
+        cam_yml = os.path.join(workdir, f"h13_{name}_cam.yml")
+        write_camera_yml(cam_yml, seq.cam)
+        argv = ["--dataset", root, "--out-dir", run_dir, "--camera", cam_yml, *sc["switches"], "--device", "cuda"]
+        with contextlib.ExitStack() as stack:
+            kept = harness_capture(stack, HARNESS_CAPTURE_CALL)
+            reset_counts()
+            t0 = time.perf_counter()
+            run_app(test_sequence.main, argv, os.path.join(workdir, f"h13_{name}.log"))
+            torch.cuda.synchronize()
+            harness_s = time.perf_counter() - t0
+            n = counts()
+        add(n)
+        with open(os.path.join(run_dir, "summary.json")) as f:
+            r = json.load(f)
+        gt = os.path.join(run_dir if sc["layout"] == "euroc" else root, "groundtruth.txt")
+        est = os.path.join(run_dir, "trajectory.txt")
+        ev = evaluate(est, gt, with_scale=False)
+        r["metric_ate"] = None if ev is None else float(ev[0])
+        stages = " ".join(f"{k}={v:.1f}ms" for k, v in r["stage_ms"].items())
+        print(f"[13 harness {name}] {frames} frames: write_s={write_s:.1f} harness_s={harness_s:.1f} "
+              f"pass1 tracked {r['pass1_tracked']} (jax {ref['pass1_tracked']}) pass2 tracked {r['pass2_tracked']} "
+              f"(jax {ref['pass2_tracked']}) ATE={r['ate']} (jax {ref['ate']:.6f}) metric_ATE={r['metric_ate']} "
+              f"(jax {ref['metric_ate']:.6f}) keyframes={r['keyframes']} (jax {ref['keyframes']}) points={r['points']} "
+              f"(jax {ref['points']}) recoveries={r['recoveries']}; launches B1={n['B1']} B2={n['B2']} "
+              f"(batched {n['B2_batched']})")
+        print(f"[13 harness {name}] decode_ms_median={r['decode_ms_median']:.3f} steadyFPS={r['steady_fps']:.2f} "
+              f"mappingFPS={r['mapping_fps']:.2f} trackingFPS={r['tracking_fps']:.2f} stage_ms: {stages}")
+        check(n["B1"] > 0 and n["B2"] > 0, f"13 {name}: B1 or B2 was not launched on the card")
+        check(r["pass1_tracked"] >= ref["pass1_tracked"] - 2, f"13 {name}: pass 1 tracked {r['pass1_tracked']}")
+        check(r["pass2_tracked"] >= ref["pass2_tracked"] - 2, f"13 {name}: pass 2 tracked {r['pass2_tracked']}")
+        check(r["ate"] is not None and r["ate"] <= 1.2 * ref["ate"] + 0.002, f"13 {name}: ATE {r['ate']}")
+        if name != "mono":
+            check(r["metric_ate"] is not None and r["metric_ate"] <= 1.2 * ref["metric_ate"] + 0.002,
+                  f"13 {name}: metric ATE {r['metric_ate']}")
+        out[name] = dict(r, write_s=write_s, harness_s=harness_s, launches=n)
+        # the kernels at the harness's shapes, on this run's inputs
+        check(all(k in kept for k in ("b1_track", "b1_fuse", "b2")),
+              f"13 {name}: the run made no {HARNESS_CAPTURE_CALL}th tracker call to B1 and B2, or no fusion")
+        b1.update(b1_record(kept["b1_track"], f"13 {name} B1 track", f"_h13_{name}_track"))
+        b1.update(b1_record(kept["b1_fuse"], f"13 {name} B1 fusion", f"_h13_{name}_fuse"))
+        b2.update(b2_record(kept["b2"], "keypoint" if name == "mono" else "depth", f"13 {name} B2",
+                            f"_h13_{name}"))
+
+        if name == "mono":
+            map_path = os.path.join(run_dir, "map.slm")
+            reset_counts()
+            text = run_app(run_slam.main, ["--dataset", root, "--camera", cam_yml, "--mode", "localization",
+                                           "--in-map", map_path, "--out", os.path.join(workdir, "h13_loc.txt"),
+                                           "--device", "cuda"], os.path.join(workdir, "h13_run_slam.log"))
+            torch.cuda.synchronize()
+            n = counts()
+            add(n)
+            tracked = int(text.split("\ntracked ")[-1].split("/")[0])
+            print(f"[13 run_slam] localization over the mono tree from the harness's map: tracked {tracked}/{frames} "
+                  f"(harness pass 2 {r['pass2_tracked']}); launches B1={n['B1']} B2={n['B2']}")
+            check(tracked >= r["pass2_tracked"] - 2 and n["B1"] > 0, f"13 run_slam: tracked {tracked}")
+            reset_counts()
+            text = run_app(test_reloc.main, ["--map", map_path, "--dataset", root, "--camera", cam_yml,
+                                             "--device", "cuda"], os.path.join(workdir, "h13_reloc.log"))
+            torch.cuda.synchronize()
+            n = counts()
+            add(n)
+            rate = float(text.split("relocRate=")[-1].split()[0])
+            print(f"[13 test_reloc] relocRate={rate:.4f} (jax {ref['reloc']['rate']:.4f}); launches B1={n['B1']} "
+                  f"B2={n['B2']} (batched {n['B2_batched']})")
+            check(rate >= ref["reloc"]["rate"], f"13 test_reloc: relocRate {rate} < JAX's {ref['reloc']['rate']}")
+            exp = os.path.join(workdir, "h13_export")
+            text = run_app(map_export.main, [map_path, "--ply", exp + ".ply", "--pcd", exp + ".pcd",
+                                             "--markermap", exp + "_markers.yml", "--pmvs", exp + "_pmvs"],
+                           os.path.join(workdir, "h13_export.log"))
+            n_pmvs = sum(len(fs) for _, _, fs in os.walk(exp + "_pmvs"))
+            ok = all(os.path.getsize(exp + x) > 0 for x in (".ply", ".pcd", "_markers.yml"))
+            print(f"[13 map_export] ply/pcd/markermap written {ok}; pmvs files {n_pmvs} for {r['keyframes']} keyframes")
+            check(ok and n_pmvs == r["keyframes"] + 2, "13 map_export: files missing")
+
+    fo = frontend_options_on_shared_arrays(mono_images)
+    one_side = max(o / max(a, b, 1) for o, a, b in zip(fo["one_side"], fo["card"], fo["cpu"]))
+    print(f"[13 frontend options] ksf 0.5 + autoAdjustKpSensitivity, card vs CPU: keypoints {fo['card']} / "
+          f"{fo['cpu']}, on one side only at most {100 * one_side:.2f}%; FAST thresholds card {fo['thr_card']} "
+          f"cpu {fo['thr_cpu']}")
+    check(one_side <= 0.01, f"13 frontend options: {100 * one_side:.2f}% of the keypoints on one side only")
+    check(fo["thr_card"] == fo["thr_cpu"] and min(fo["thr_card"]) < 7.0,
+          "13 frontend options: the FAST thresholds differ or never moved")
+    return dict(launches=launches, trees=out, b1=b1, b2=b2)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2443,19 +2791,26 @@ def main(argv=None) -> int:
                 launches = {k: n + part["launches"][k] for k, n in launches.items()}
                 b2["launches_batched"] = b2.get("launches_batched", 0) + part["launches"]["B2_batched"]
                 b2.update(part.get("b2", {}))
+        phases = [("13", lambda: phase_harness(args.frames, workdir))]
         if args.frames == 60:  # phases 10-12 run in the 60-frame run
-            for phase, run in (("10", lambda: phase_vocabulary(scene, workdir)), ("11", lambda: phase_ba_scale(workdir)),
-                               ("12", lambda: phase_async(scene))):
-                try:
-                    part = run()
-                except SmokeFailure as e:
-                    # no phase from 10 on depends on another: each still runs
-                    failed, part = failed or e, None
-                    print(f"[{phase}] FAILED: {e}")
-                lap(phase)
-                if part is not None and "launches" in part:
-                    launches = {k: n + part["launches"][k] for k, n in launches.items()}
-                    b2["launches_batched"] = b2.get("launches_batched", 0) + part["launches"]["B2_batched"]
+            phases[:0] = [("10", lambda: phase_vocabulary(scene, workdir)), ("11", lambda: phase_ba_scale(workdir)),
+                          ("12", lambda: phase_async(scene))]
+        for phase, run in phases:
+            try:
+                part = run()
+            except SmokeFailure as e:
+                # no phase from 10 on depends on another: each still runs
+                failed, part = failed or e, None
+                print(f"[{phase}] FAILED: {e}")
+            lap(phase)
+            if part is not None and "launches" in part:
+                launches = {k: n + part["launches"][k] for k, n in launches.items()}
+                b2["launches_batched"] = b2.get("launches_batched", 0) + part["launches"]["B2_batched"]
+            for rec, key in ((b1, "b1"), (b2, "b2")):  # phase 13's records at the harness's shapes
+                if part is not None and key in part:
+                    rec.update(part[key])
+                    rec["max_abs_err"] = max([rec["max_abs_err"]] + [
+                        v for k, v in part[key].items() if k.startswith("max_abs_err")])
     if failed is not None:
         raise failed
     print(f"[time] seconds by phase {json.dumps(seconds)} total={time.perf_counter() - t_start:.1f}")

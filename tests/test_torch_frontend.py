@@ -115,3 +115,74 @@ def test_frame_extractor_agreement(seqs):
         kp_agree, bit_agree = _agreement(f_port, f_ref)
         assert kp_agree >= 0.99, f"frame {i}: keypoint-set agreement {kp_agree:.4f}"
         assert bit_agree >= 0.98, f"frame {i}: descriptor-bit agreement {bit_agree:.5f}"
+
+
+# -- the frontend options: detector-resolution scaling and sensitivity --------
+#
+# Measured here (CPU): at kptImageScaleFactor 0.5 all 512 keypoints of each
+# frame match the reference's (same octave, xy within 1e-3); at 0.75, 511 or
+# 512 of 512 (one FAST score at the threshold tips). The floor is the 99%
+# above.
+
+
+@pytest.mark.parametrize("ksf", [0.5, 0.75])
+def test_detector_resize_matches_jax(seqs, ksf):
+    import jax
+
+    img = seqs[1].render(5).astype(np.float32) / 255.0  # the resize is linear: held on [0, 1]
+    small = (max(8, int(round(480 * ksf))), max(8, int(round(640 * ksf))))
+    got = image.resize_linear(torch.from_numpy(img), small).numpy()
+    want = np.asarray(jax.image.resize(jnp.asarray(img), small, method="linear"))
+    assert got.shape == want.shape == small
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+def _matched(port_frame, ref_frame, tol=1e-3):
+    """-> (share of the union matched, max xy difference of the matches):
+    keypoints of equal octave within `tol` pixels."""
+    vp, vr = port_frame.valid.numpy(), np.asarray(ref_frame.valid)
+    xp, xr = port_frame.xy.numpy()[vp], np.asarray(ref_frame.xy)[vr]
+    op, orr = port_frame.octave.numpy()[vp], np.asarray(ref_frame.octave)[vr]
+    d = np.abs(xp[:, None, :] - xr[None, :, :]).max(-1) + np.where(op[:, None] != orr[None, :], np.inf, 0.0)
+    best = d.min(1)
+    n = int((best <= tol).sum())
+    return n / max(len(xp) + len(xr) - n, 1), float(best[best <= tol].max(initial=0.0))
+
+
+@pytest.mark.parametrize("ksf,target_focus", [(0.5, 0.0), (0.75, 0.0), (1.0, 375.0)])
+def test_scaled_detector_extract_matches_reference(seqs, ksf, target_focus):
+    params = Params().replace(detectMarkers=False, maxKeyPointsPerFrame=512, nOctaveLevels=4,
+                              kptImageScaleFactor=ksf, targetFocus=target_focus)
+    ref = RefExtractor(params, RefCamera.create(500.0, 500.0, 320.0, 240.0))
+    port = FrameExtractor(PortParams.from_dict(params.to_dict()), CameraParams.create(500.0, 500.0, 320.0, 240.0),
+                          device="cpu")
+    assert port.ksf == (ksf if target_focus == 0 else 0.75)
+    for i in FRAMES:
+        img = seqs[1].render(i)
+        f_port, f_ref = port.process(img, i), ref.process(img, i)
+        assert int(f_port.valid.sum()) > 300
+        agree, err = _matched(f_port, f_ref)
+        assert agree >= 0.99, f"frame {i}: keypoint agreement {agree:.4f} at ksf {port.ksf}"
+        assert err <= 1e-3
+
+
+def test_auto_adjust_sensitivity_follows_reference(seqs):
+    """A low-texture stretch (five nearly flat frames) lowers the FAST
+    threshold a step a frame down to 3, one frame late; texture raises it
+    back to 7."""
+    params = Params().replace(detectMarkers=False, maxKeyPointsPerFrame=512, nOctaveLevels=4,
+                              autoAdjustKpSensitivity=True)
+    ref = RefExtractor(params, RefCamera.create(500.0, 500.0, 320.0, 240.0))
+    port = FrameExtractor(PortParams.from_dict(params.to_dict()), CameraParams.create(500.0, 500.0, 320.0, 240.0),
+                          device="cpu")
+    flat = np.full((480, 640), 40.0, np.float32) + (np.arange(640)[None, :] % 7)
+    frames = [seqs[1].render(0), seqs[1].render(1)] + [flat] * 5 + [seqs[1].render(i) for i in range(2, 8)]
+    got, want, fills = [], [], []
+    for i, img in enumerate(frames):
+        f_port, f_ref = port.process(img, i), ref.process(img, i)
+        got.append(port.orb.fast_threshold)
+        want.append(float(ref.orb.fast_threshold))
+        fills.append(int(f_port.valid.sum()) == int(np.asarray(f_ref.valid).sum()))
+    assert got == want
+    assert min(got) == 3.0 and got[-1] == 7.0
+    assert all(fills)

@@ -25,6 +25,10 @@ def test_port_import_leaves_jax_out():
         "import ucoslam_tpu_torch.markers.ippe, ucoslam_tpu_torch.markers.detector, ucoslam_tpu_torch.slam.markermap\n"
         "import ucoslam_tpu_torch.io.stereorectify, ucoslam_tpu_torch.features.frame_extractor\n"
         "import ucoslam_tpu_torch.io.fbow, ucoslam_tpu_torch.optim.schur_pm, ucoslam_tpu_torch.slam.system\n"
+        "import ucoslam_tpu_torch.io.png, ucoslam_tpu_torch.io.datasets, ucoslam_tpu_torch.io.exporters\n"
+        "import ucoslam_tpu_torch.utils.timers, ucoslam_tpu_torch.utils.hostbuild, ucoslam_tpu_torch.viz.viewer\n"
+        "from ucoslam_tpu_torch.apps import analyze_logs, compare_logs, map_export, run_slam\n"
+        "from ucoslam_tpu_torch.apps import stereo_rectify, test_reloc, test_sequence\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'ucoslam_tpu' not in sys.modules, 'ucoslam_tpu imported'\n"
@@ -32,6 +36,9 @@ def test_port_import_leaves_jax_out():
         "assert cuda.load_library.cache_info().currsize == 0, 'a kernel was built at import'\n"
         "from ucoslam_tpu_torch.markers import native\n"
         "assert native.load_library.cache_info().currsize == 0, 'the marker detector was built at import'\n"
+        "from ucoslam_tpu_torch.io import png\n"
+        "assert png._library.cache_info().currsize == 0, 'the PNG helper was built at import'\n"
+        "assert 'cv2' not in sys.modules, 'cv2 imported'\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

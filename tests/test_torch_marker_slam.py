@@ -171,3 +171,43 @@ def test_marker_checkpoint_read_by_both_packages(metric_run, tmp_path):
         np.testing.assert_array_equal(np.asarray(getattr(ref.map.state, k)), slam.map.h(k), err_msg=k)
     np.testing.assert_array_equal(ref.map.markers.active, slam.map.markers.active)
     assert ref._system.manager.metric_locked
+
+
+@pytest.mark.parametrize("n_close,n_tracked", [(80, 10), (40, 10), (80, 120)])
+def test_keyframe_decision_on_a_marker_pose(n_close, n_tracked):
+    """A camera with a baseline (the parity scenes' default camera has
+    bl = 0.1) and a pose the markers gave: that result carries no bundled
+    host fetch, and the close-point keyframe test reads the frame's own
+    depth, ids and valid, as the reference's does."""
+    import jax.numpy as jnp
+
+    from ucoslam_tpu.mapping.frame import empty_frame as ref_empty_frame
+    from ucoslam_tpu.slam.tracker import TrackResult as RefTrackResult
+    from ucoslam_tpu_torch.geometry.camera import CameraParams
+    from ucoslam_tpu_torch.mapping.frame import empty_frame
+    from ucoslam_tpu_torch.slam.system import System
+    from ucoslam_tpu_torch.slam.tracker import TrackResult
+
+    n = 256
+    depth = np.zeros(n, np.float32)
+    depth[: n_close + n_tracked] = 2.0
+    ids = np.full(n, -1, np.int32)
+    ids[n_close : n_close + n_tracked] = np.arange(n_tracked)
+    valid = np.ones(n, bool)
+    params = Params().replace(maxKeyPointsPerFrame=n, detectMarkers=False)
+    ref_params = RefParams().replace(maxKeyPointsPerFrame=n, detectMarkers=False)
+    sys_ = System(params, CameraParams.create(500.0, 500.0, 320.0, 240.0, bl=0.1), device="cpu")
+    ref_sys = RefSystem(ref_params, RefCamera.create(500.0, 500.0, 320.0, 240.0, bl=0.1))
+    frame = empty_frame(n, "cpu").replace(depth=torch.from_numpy(depth), ids=torch.from_numpy(ids),
+                                          valid=torch.from_numpy(valid))
+    ref_frame = ref_empty_frame(n)._replace(depth=jnp.asarray(depth), ids=jnp.asarray(ids), valid=jnp.asarray(valid))
+    got, want = [], []
+    for frames_since_kf in (0, 3):
+        for s in (sys_, ref_sys):
+            s.frames_since_kf, s.last_kf_inliers = frames_since_kf, 100
+        got.append(sys_._need_keyframe(TrackResult(True, np.eye(4, dtype=np.float32), frame, 95, 90,
+                                                   np.zeros(0, np.int32))))
+        want.append(ref_sys._need_keyframe(RefTrackResult(True, jnp.eye(4), ref_frame, 95, 90,
+                                                          np.zeros(0, np.int32))))
+    assert got == want
+    assert got[1] == (n_close > 70 and n_tracked < 100)

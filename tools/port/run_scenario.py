@@ -30,6 +30,23 @@ run of the same protocol:
 
     python3 tools/port/run_scenario.py --scenario loop_easy --voc auto [--out FILE]
 
+`--png` runs the protocol as run_parity.py runs it: the scenario's PNG tree
+written by the port's writer (`chip_smoke.write_tree`: TUM, with 16-bit
+depth for `rgbd`, EuRoC for `stereo`), then the port's
+`apps.test_sequence` on it in-process with run_parity.py's switches and
+camera file (`chip_smoke.harness_scenario`), the bundled vocabulary, and
+the sixth scenario, `loop` (`orbit_out`, 3000 points, `--recovery
+--save-every 40`), which needs the harness's recovery rollback and so runs
+only with `--png`. `--frames N` cuts every scenario to N frames. The row
+holds both passes' tracked frames, the scale-aligned and the metric ATE of
+the pass-2 trajectory (run_parity.py takes the metric one for `markers`,
+`stereo` and `rgbd`), keyframes, points, recoveries, the harness's fps and
+stage timers, the median PNG decode ms, B1 and B2 launches, and the JAX
+package's harness on the same tree from `data/torch_port/harness_jax.json`
+(`tools/port/harness_reference.py`) where it has that frame count:
+
+    python3 tools/port/run_scenario.py --png --scenario loop --frames 150 [--out FILE]
+
 Needs a CUDA device.
 """
 
@@ -61,6 +78,7 @@ SCENARIOS = {
     "markers": dict(n_frames=150, n_points=1600, n_markers=10, marker_size=0.6, seed=5),
     "stereo": dict(n_frames=150, n_points=1600, seed=5, depth_mode="stereo"),
     "rgbd": dict(n_frames=150, n_points=1600, seed=5),
+    "loop": dict(n_frames=360, n_points=3000, seed=5, trajectory="orbit_out"),
 }
 #: the camera of run_parity.py's `stereo` and `rgbd` scenes
 DEPTH_CAMERA = dict(fx=500.0, fy=500.0, cx=320.0, cy=240.0, width=640, height=480, bl=0.25)
@@ -131,10 +149,10 @@ def timed_pass(slam: UcoSlam, images, kind: str) -> tuple[dict, list]:
     return poses, ms
 
 
-def run(name: str, vocabulary: str | None = None) -> dict:
+def run(name: str, vocabulary: str | None = None, frames: int | None = None) -> dict:
     kind = name if name in ("stereo", "rgbd") else "mono"
     cam = CameraParams.create(**DEPTH_CAMERA) if kind != "mono" else None
-    seq = SyntheticSequence(cam=cam, **SCENARIOS[name])
+    seq = SyntheticSequence(cam=cam, **dict(SCENARIOS[name], n_frames=frames or SCENARIOS[name]["n_frames"]))
     images = [seq.render(i) if kind == "mono" else chip_smoke.depth_input(kind, seq, i) for i in range(seq.n_frames)]
     markers = name == "markers"
     params = PARAMS.replace(detectMarkers=True, aruco_markerSize=0.6) if markers else PARAMS
@@ -168,7 +186,7 @@ def run(name: str, vocabulary: str | None = None) -> dict:
     p2, ms2 = timed_pass(loc, images, kind)
     n = seq.n_frames
     return dict(
-        scenario=name, sequence=SCENARIOS[name], frames=n,
+        scenario=name, sequence=dict(SCENARIOS[name], n_frames=n), frames=n,
         vocabulary=None if vocabulary is None else os.path.basename(vocabulary), loops=loop_summary(loops),
         pass1=dict(tracked=len(p1), tracked_pct=len(p1) / n, ate=ate(p1), metric_ate=metric,
                    ms_median=float(np.median(ms1)), ms_mean=float(np.mean(ms1)), seconds=t_map,
@@ -181,12 +199,52 @@ def run(name: str, vocabulary: str | None = None) -> dict:
     )
 
 
+def run_png(name: str, frames: int, workdir: str) -> dict:
+    """The scenario's PNG tree through the port's two-pass harness."""
+    from ucoslam_tpu_torch.apps import test_sequence
+    from ucoslam_tpu_torch.apps.compare_logs import evaluate
+
+    root, run_dir = os.path.join(workdir, name), os.path.join(workdir, f"{name}_run")
+    t0 = time.perf_counter()
+    seq, sc = chip_smoke.write_tree(name, frames, root)
+    write_s = time.perf_counter() - t0
+    cam_yml = os.path.join(workdir, f"{name}_cam.yml")
+    chip_smoke.write_camera_yml(cam_yml, seq.cam)
+    argv = ["--dataset", root, "--out-dir", run_dir, "--camera", cam_yml, *sc["switches"], "--device", "cuda"]
+    if sc["params"]:
+        pyml = os.path.join(workdir, f"{name}_params.yml")
+        Params().replace(maxMapPoints=8192, maxKeyFrames=64, maxKeyPointsPerFrame=1024, maxDescDistance=60.0,
+                         **sc["params"]).save_yml(pyml)
+        argv += ["--params", pyml]
+    chip_smoke.reset_counts()
+    t0 = time.perf_counter()
+    chip_smoke.run_app(test_sequence.main, argv, os.path.join(workdir, f"{name}.log"))
+    torch.cuda.synchronize()
+    harness_s = time.perf_counter() - t0
+    launches = chip_smoke.counts()
+    with open(os.path.join(run_dir, "summary.json")) as f:
+        row = json.load(f)
+    gt = os.path.join(run_dir if sc["layout"] == "euroc" else root, "groundtruth.txt")
+    ev = evaluate(os.path.join(run_dir, "trajectory.txt"), gt, with_scale=False)
+    row.update(scenario=name, sequence=sc["seq"], switches=sc["switches"], metric_ate=None if ev is None else ev[0],
+               parity_ate_is_metric=name in ("markers", "stereo", "rgbd"), write_s=write_s, harness_s=harness_s,
+               launches=launches)
+    with open(chip_smoke.HARNESS_REF_PATH) as f:
+        row["jax"] = json.load(f)["runs"].get(str(frames), {}).get(name)
+    return row
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--scenario", choices=sorted(SCENARIOS), default="loop_easy")
     ap.add_argument("--out", default=None, help="also write the JSON result here")
     ap.add_argument("--voc", default=None, help="a .fbow vocabulary for the keyframe database ('auto': data/vocab.fbow)")
+    ap.add_argument("--png", action="store_true",
+                    help="write the scenario's PNG tree and run the port's apps.test_sequence on it")
+    ap.add_argument("--frames", type=int, default=None, help="cut the scenario to this many frames")
     args = ap.parse_args(argv)
+    if args.scenario == "loop" and not args.png:
+        ap.error("the loop scenario's protocol needs the harness's recovery rollback: run it with --png")
     if not torch.cuda.is_available():
         raise SystemExit("run_scenario: no CUDA device")
     from ucoslam_tpu_torch.slam.system import disable_tf32
@@ -194,7 +252,12 @@ def main(argv=None) -> None:
     disable_tf32()
     from ucoslam_tpu_torch.io.fbow import default_vocab_path
 
-    out = run(args.scenario, default_vocab_path() if args.voc == "auto" else args.voc)
+    frames = args.frames or SCENARIOS[args.scenario]["n_frames"]
+    if args.png:
+        with tempfile.TemporaryDirectory() as d:
+            out = run_png(args.scenario, frames, d)
+    else:
+        out = run(args.scenario, default_vocab_path() if args.voc == "auto" else args.voc, frames)
     out["device"] = torch.cuda.get_device_name(0)
     out["nvidia_smi"] = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                                        capture_output=True, text=True, timeout=60).stdout.strip()

@@ -21,9 +21,15 @@ pair, `io.stereorectify.StereoRectify` for a calibrated rig, and
 `processRGBD`; the one-frame metric depth init), trained `.fbow`
 vocabularies (`setParams(..., vocabulary=path)`), global BA at scale (the
 point-major and matrix-free CG solvers) and the asynchronous mapper
-(`runSequential=False`). Left (ROADMAP.md, Queue 1): the port's benchmark,
-the frontend options, IO, apps and the harness (item 7), then multi-GPU
-(item 8).
+(`runSequential=False`), the detector-resolution and sensitivity options
+of the frontend, and datasets on disk with the command-line harness
+(`io.png`, a PNG codec without cv2; `io.datasets`, TUM / EuRoC / KITTI;
+`io.exporters`; `apps.test_sequence`, `run_slam`, `test_reloc`,
+`map_export`, `compare_logs`, `analyze_logs`, `stereo_rectify`;
+`viz.viewer`; `utils.timers`). Left (ROADMAP.md, Queue 1): the port's
+benchmark, the FREAK/SURF descriptor families, the grid extractor,
+`vocab_trainer`, `stereo_calibrate` and dictionaries without native tables
+(item 7), then multi-GPU (item 8).
 
 This package imports neither jax nor anything of `ucoslam_tpu`: `Params`,
 `Mode` and `TrackingState` are its own (`ucoslam_tpu_torch.config`).

@@ -7,12 +7,24 @@ markers (`markers.detector.ArucoDetector`) and, with
 `removeKeyPointsIntoMarkers`, the keypoints inside a detected marker
 dropped. RGB-D samples the raw depth image at each keypoint; stereo runs a
 second ORB pass on the rectified right image, matches along rows and refines
-each match to subpixel disparity (`stereo_depth`). The cv2 grid extractor,
-the detector-resolution scaling and the sensitivity adaptation are not
-ported.
+each match to subpixel disparity (`stereo_depth`).
+
+Two options of the reference's frontend: detector-resolution scaling
+(`kptImageScaleFactor`, times min(1, `targetFocus` / fx) when `targetFocus`
+is set) detects on the gray image resized by the reference's
+anti-aliased triangle filter (`jax.image.resize(..., "linear")`, its weight
+matrices built in its own float32 arithmetic and applied as two matmuls by
+`ops.image.resize_linear`) and scales the keypoints back to
+full-resolution pixels; `autoAdjustKpSensitivity` moves the FAST threshold
+between 3 and 7 by the previous frame's fill of the detector's budget, read
+one frame late from a non-blocking copy to pinned memory, so that no frame
+waits for its own detection. The cv2 grid extractor and the other
+descriptor families are not ported.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -22,7 +34,8 @@ from ucoslam_tpu_torch.features.orb import ORBExtractor
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import Frame, empty_frame
 from ucoslam_tpu_torch.ops.hamming import INVALID_DIST, hamming_matrix, match_best2, mutual_best
-from ucoslam_tpu_torch.ops.image import bilinear_sample, rgb_to_gray
+from ucoslam_tpu_torch.ops.image import bilinear_sample, resize_linear, rgb_to_gray
+from ucoslam_tpu_torch.utils.timers import timers
 
 
 def points_in_quads(xy: torch.Tensor, quads: torch.Tensor, quad_valid: torch.Tensor) -> torch.Tensor:
@@ -37,22 +50,24 @@ def points_in_quads(xy: torch.Tensor, quads: torch.Tensor, quad_valid: torch.Ten
 
 class FrameExtractor:
     def __init__(self, params: Params, cam: CameraParams, device="cuda", marker_detector=None):
-        unported = []
         if params.kpDescriptorType != DescriptorType.ORB:
-            unported.append(f"descriptor {params.kpDescriptorType.name}")
-        if params.kptImageScaleFactor != 1.0 or params.targetFocus > 0:
-            unported.append("detector-resolution scaling")
-        if params.autoAdjustKpSensitivity:
-            unported.append("autoAdjustKpSensitivity")
-        if unported:
             raise NotImplementedError(
-                f"not ported yet: {', '.join(unported)} (ROADMAP.md, Queue 1 item 7: frontend options)"
+                f"not ported yet: descriptor {params.kpDescriptorType.name} "
+                "(ROADMAP.md, Queue 1 item 7: the FREAK/SURF families and the grid extractor)"
             )
         self.params = params
         self.cam = cam
         self.device = torch.device(device)
         self.marker_detector = marker_detector
         self._prefetched = None  # (image, pinned host copy, device copy) of the next frame
+        self._pending_fill = None  # (host copy, copy event) of the last frame's budget fill
+        # the detector's resolution: kptImageScaleFactor, and targetFocus
+        # normalizing it across cameras (the focus the keypoint parameters
+        # were tuned for)
+        ksf = float(params.kptImageScaleFactor)
+        if params.targetFocus > 0:
+            ksf *= min(1.0, float(params.targetFocus) / float(cam.fx))
+        self.ksf = ksf
         self.orb = ORBExtractor(
             max_features=min(params.maxFeatures, params.maxKeyPointsPerFrame),
             n_levels=params.nOctaveLevels,
@@ -82,12 +97,59 @@ class FrameExtractor:
     def _gray(self, img: np.ndarray) -> torch.Tensor:
         return rgb_to_gray(self._take_prefetched(img))
 
+    def _adjust_sensitivity(self) -> None:
+        """The low-texture adaptation (ORBextractor::setSensitivity): when
+        the previous frame's detector filled less than half its budget,
+        lower the FAST threshold by 1 (down to 3); above 90%, raise it back
+        (up to 7). The fill's copy was started a frame ago, so its event
+        has long completed."""
+        if self._pending_fill is None:
+            return
+        host, done = self._pending_fill
+        if done is not None:
+            done.synchronize()
+        fill = float(host[0])
+        if fill < 0.5 and self.orb.fast_threshold:
+            self.orb.fast_threshold = max(3.0, self.orb.fast_threshold - 1.0)
+        elif fill > 0.9 and self.orb.fast_threshold < 7.0:
+            self.orb.fast_threshold = min(7.0, self.orb.fast_threshold + 1.0)
+
+    def _keep_fill(self, valid: torch.Tensor) -> None:
+        """Start the copy of this frame's budget fill to the host."""
+        fill = valid.to(torch.float32).mean().reshape(1)
+        if fill.device.type == "cuda":
+            host = torch.empty(1, dtype=torch.float32, pin_memory=True)
+            host.copy_(fill, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            self._pending_fill = (host, done)
+        else:
+            self._pending_fill = (fill, None)
+
+    def detect(self, gray: torch.Tensor):
+        """Keypoints of a gray image at the detector's resolution, in
+        full-resolution pixels."""
+        if self.ksf == 1.0:
+            return self.orb.detect_and_compute(gray)
+        H, W = gray.shape
+        small = (max(8, int(round(H * self.ksf))), max(8, int(round(W * self.ksf))))
+        kps = self.orb.detect_and_compute(resize_linear(gray, small))
+        return dataclasses.replace(kps, xy=kps.xy / torch.tensor(np.float32(self.ksf), device=gray.device))
+
     def _base_frame(self, img: np.ndarray, fseq: int) -> tuple[Frame, torch.Tensor]:
         """(H, W) gray or (H, W, 3) BGR image -> (Frame, gray image), both on
         the device."""
+        with timers.stage("extract"):
+            return self._base_frame_impl(img, fseq)
+
+    def _base_frame_impl(self, img: np.ndarray, fseq: int) -> tuple[Frame, torch.Tensor]:
         cap = self.params.maxKeyPointsPerFrame
+        if self.params.autoAdjustKpSensitivity:
+            self._adjust_sensitivity()
         gray = self._gray(img)
-        kps = self.orb.detect_and_compute(gray)
+        kps = self.detect(gray)
+        if self.params.autoAdjustKpSensitivity:
+            self._keep_fill(kps.valid)
         und = self.cam.undistort_points(kps.xy) if self.cam.has_distortion() else kps.xy
 
         def fit(a, fill=0):
@@ -133,7 +195,7 @@ class FrameExtractor:
         depth from its row match in the right image (`stereo_depth`)."""
         f, gray_l = self._base_frame(left, fseq)
         gray_r = self._gray(right)
-        kr = self.orb.detect_and_compute(gray_r)
+        kr = self.orb.detect_and_compute(gray_r)  # full resolution, as the reference
         cam = self.cam
         # z >= baseline <=> disparity <= bf / bl (= fx); fx when bl == 0,
         # where bf == 0 gives every keypoint depth 0, as in the reference

@@ -648,6 +648,50 @@ class Map:
         z = (pt_pos[obs] @ T[:3, :3].T + T[:3, 3])[:, 2]
         return float(np.median(z))
 
+    def remove_unused_keypoints(self) -> int:
+        """Invalidate keyframe keypoints with no map-point assignment
+        (counterpart utils/ucoslam_map_removeunusedkeypoint, map.h:61).
+        Shrinks matching work and serialized size. Returns #removed."""
+        st = self.state
+        used = st.kf_kpt_valid & (st.kf_ids >= 0)
+        removed = int(st.kf_kpt_valid.sum()) - int(used.sum())
+        self.state = st.replace(kf_kpt_valid=used)
+        return removed
+
+    # -- export (map.h:65 pcd/ply) --------------------------------------
+    def export_pointcloud(self, path: str, with_keyframes: bool = True) -> None:
+        """Write active points (+ keyframe centers) as ascii PLY, or PCD when
+        the path ends in .pcd; the same text as the reference's for the same
+        map."""
+        pt_pos, pt_active, kf_active, kf_pose = self.h("pt_pos", "pt_active", "kf_active", "kf_pose")
+        pts = pt_pos[pt_active]
+        colors = np.tile(np.asarray([[90, 200, 90]], np.uint8), (len(pts), 1))
+        if with_keyframes:
+            poses = kf_pose[kf_active]
+            centers = np.stack([-P[:3, :3].T @ P[:3, 3] for P in poses]) if len(poses) else np.zeros((0, 3))
+            pts = np.concatenate([pts, centers])
+            colors = np.concatenate([colors, np.tile(np.asarray([[240, 120, 80]], np.uint8), (len(centers), 1))])
+        with open(path, "w") as f:
+            if path.endswith(".pcd"):
+                f.write(
+                    "# .PCD v0.7 - Point Cloud Data\nVERSION 0.7\n"
+                    "FIELDS x y z\nSIZE 4 4 4\nTYPE F F F\nCOUNT 1 1 1\n"
+                    f"WIDTH {len(pts)}\nHEIGHT 1\nVIEWPOINT 0 0 0 1 0 0 0\n"
+                    f"POINTS {len(pts)}\nDATA ascii\n"
+                )
+                for p in pts:
+                    f.write(f"{p[0]:.6f} {p[1]:.6f} {p[2]:.6f}\n")
+            else:
+                f.write(
+                    "ply\nformat ascii 1.0\n"
+                    f"element vertex {len(pts)}\n"
+                    "property float x\nproperty float y\nproperty float z\n"
+                    "property uchar red\nproperty uchar green\nproperty uchar blue\n"
+                    "end_header\n"
+                )
+                for p, c in zip(pts, colors):
+                    f.write(f"{p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {c[0]} {c[1]} {c[2]}\n")
+
     # -- integrity ------------------------------------------------------
     def check_consistency(self) -> None:
         """Invariant sweep: arenas agree with the state, and no active

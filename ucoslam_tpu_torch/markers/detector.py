@@ -57,7 +57,7 @@ class ArucoDetector:
         if dictionary not in self.NATIVE_DICTS:
             raise NotImplementedError(
                 f"marker dictionary {dictionary} has no native table; the cv2 backend is not ported yet "
-                "(ROADMAP.md, Queue 1 item 7: frontend options)"
+                "(ROADMAP.md, Queue 1 item 7: dictionaries without native tables)"
             )
         self.dictionary = dictionary
         self.marker_size = float(marker_size)

@@ -5,8 +5,8 @@ port itself: `g++` compiles the checkout's source into
 `build/ucoslam_tpu_torch/`, under a name made from a hash of the source, its
 headers, the flags (as the CUDA libraries are named) and the compiler and
 host CPU that `-march=native` stands for, at the first detection, never when
-the module is imported: a library built on one machine is never loaded on
-another whose CPU or compiler differs. The port never builds into
+the module is imported (`utils/hostbuild.py`): a library built on one
+machine is never loaded on another whose CPU or compiler differs. The port never builds into
 `native/` and never loads a library it finds there. A missing compiler or a
 failed build or load raises: there is no other detector to fall back to.
 """
@@ -15,71 +15,33 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 
 import numpy as np
 
 from ucoslam_tpu_torch.markers.dictionary import NATIVE_DIR, dict_bits, load_codewords
+from ucoslam_tpu_torch.utils import hostbuild
+from ucoslam_tpu_torch.utils.hostbuild import BUILD_DIR  # noqa: F401
 
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ucoslam_tpu_torch"
 SOURCE = NATIVE_DIR / "aruco_detector.cpp"
 HEADERS = (NATIVE_DIR / "aruco_mip_36h12.h",)
 #: native/Makefile's flags, so the port's library computes what the JAX
 #: package's does, bit for bit
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-pthread", "-shared")
+LIBRARY = hostbuild.HostLibrary("aruco_native", SOURCE, HEADERS, CXX_FLAGS)
 
 #: seconds g++ took in this process (0.0 when the library was already built)
 build_seconds = 0.0
 
 
-def _compiler() -> str:
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the native ArUco detector cannot be built")
-    return cxx
+def library_path():
+    return LIBRARY.path()
 
 
-@functools.cache
-def _host_target() -> bytes:
-    """The compiler's version and the target options `-march=native`
-    enables on this CPU, as g++ lists them."""
-    cxx = _compiler()
-    parts = []
-    for args in (["--version"], ["-march=native", "-Q", "--help=target"]):
-        out = subprocess.run([cxx, *args], capture_output=True, text=True, timeout=60)
-        if out.returncode != 0:
-            raise RuntimeError(f"g++ {' '.join(args)} failed:\n{out.stderr}")
-        parts.append(out.stdout)
-    return "".join(parts).encode()
-
-
-def library_path() -> Path:
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in (SOURCE, *HEADERS)) + " ".join(CXX_FLAGS).encode()
-                            + _host_target())
-    return BUILD_DIR / f"libaruco_native_{digest.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
+def build():
     """Compile the detector into build/ucoslam_tpu_torch/ unless it is there."""
     global build_seconds
-    lib = library_path()
-    if lib.exists():
-        return lib
-    cxx = _compiler()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    out = subprocess.run([cxx, *CXX_FLAGS, "-o", str(tmp), str(SOURCE)], capture_output=True, text=True,
-                         timeout=300)
-    if out.returncode != 0:
-        raise RuntimeError(f"g++ failed on {SOURCE}:\n{out.stderr}")
-    os.replace(tmp, lib)
-    build_seconds = time.perf_counter() - t0
+    lib = LIBRARY.build()
+    build_seconds = hostbuild.build_seconds.get(LIBRARY.name, 0.0)
     return lib
 
 

@@ -57,6 +57,37 @@ def _resize_weight_mat(in_size: int, out_size: int) -> np.ndarray:
     return np.where(in_span[:, None], weights, 0.0).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=16)
+def _resize_weight_mat_f32(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) the weight matrix jax.image.resize(..., "linear") builds,
+    in its own float32 arithmetic and order (jax's compute_weight_mat): its
+    sample positions round in float32, so far from the origin its weights
+    part from the float64 matrix of `_resize_weight_mat` by ~3e-5. Cached
+    per size pair; callers must not modify it."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample_f = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.0) * inv_scale - f32(0.5)
+    x = np.abs(sample_f[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    weights = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = weights.sum(axis=0, keepdims=True, dtype=f32)
+    weights = np.where(np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps),
+                       weights / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    in_span = (sample_f >= f32(-0.5)) & (sample_f <= f32(in_size - 0.5))
+    return np.ascontiguousarray(np.where(in_span[None, :], weights, f32(0.0)).T.astype(f32))
+
+
+def resize_linear(img: torch.Tensor, out_shape: tuple[int, int]) -> torch.Tensor:
+    """jax.image.resize(img, out_shape, "linear") (antialiased when it
+    shrinks), as two float32 matmuls with its own weight matrices: the
+    detector-resolution scaling of the reference's frame ingest."""
+    h, w = img.shape
+    oh, ow = out_shape
+    ah = torch.from_numpy(_resize_weight_mat_f32(h, oh)).to(img.device)
+    aw = torch.from_numpy(_resize_weight_mat_f32(w, ow)).to(img.device)
+    return (ah @ img) @ aw.T
+
+
 def resize_matmul(img: torch.Tensor, out_shape: tuple[int, int]) -> torch.Tensor:
     """Anti-aliased bilinear resize as two float32 matmuls."""
     h, w = img.shape

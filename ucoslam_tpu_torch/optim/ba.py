@@ -381,9 +381,11 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, use_cg: bool
         Sf = torch.where(free[:, None, None, None] & free[None, :, None, None], S, 0.0)
         Sf[diag, diag] += torch.where(free, 0.0, 1.0)[:, None, None] * eye6
         S_full = Sf.permute(0, 2, 1, 3).reshape(6 * V, 6 * V)
-        delta_v = torch.linalg.solve(
+        # as jnp.linalg.solve: a singular system gives a non-finite step,
+        # which the cost test below rejects, instead of raising
+        delta_v = torch.linalg.solve_ex(
             S_full + 1e-8 * torch.eye(6 * V, device=dev), b_f.reshape(-1)
-        ).reshape(V, 6)
+        )[0].reshape(V, 6)
     delta_v = torch.where(free[:, None], delta_v, 0.0)
 
     # back-substitute the points through the same table

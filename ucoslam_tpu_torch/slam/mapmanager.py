@@ -58,6 +58,7 @@ from ucoslam_tpu_torch.slam.markermap import (
     resolve_marker_slots,
     update_marker_poses,
 )
+from ucoslam_tpu_torch.utils.timers import timers
 
 #: covisible neighbours triangulated against per keyframe
 EPI_MAX_NB = 6
@@ -331,12 +332,15 @@ class MapManager:
         self._fuse_duplicates(world_map, kf_slot)
         self._cull_recent_points(world_map)
         if world_map.n_keyframes >= 3:
-            ba.local_bundle_adjustment(world_map, self.cam, kf_slot, n_iters=10, max_window=p.maxLocalKeyFrames or None)
+            with timers.stage("localBA"):
+                ba.local_bundle_adjustment(world_map, self.cam, kf_slot, n_iters=10,
+                                           max_window=p.maxLocalKeyFrames or None)
         world_map.state = op_update_point_stats(world_map.state, float(p.scaleFactor), int(p.nOctaveLevels))
         self._cull_keyframes(world_map, kf_slot)
 
         self.kfdb.add(kf_slot, frame.desc, frame.valid)
-        self._detect_and_close_loop(world_map, kf_slot, frame)
+        with timers.stage("loop"):
+            self._detect_and_close_loop(world_map, kf_slot, frame)
         return kf_slot
 
     def _add_marker_observations(self, world_map: Map, kf_slot: int, frame: Frame) -> None:

@@ -39,6 +39,7 @@ from ucoslam_tpu_torch.slam.initializer import MapInitializer
 from ucoslam_tpu_torch.slam.mapmanager import MapManager
 from ucoslam_tpu_torch.slam.markermap import best_pose_from_valid_markers, record_marker_observations, resolve_marker_slots
 from ucoslam_tpu_torch.slam.tracker import TrackResult, Tracker
+from ucoslam_tpu_torch.utils.timers import timers
 
 
 def disable_tf32() -> None:
@@ -111,9 +112,11 @@ class System:
         # async: one consistent state for the whole frame, whatever the worker writes
         view = self.map.snapshot() if is_async else self.map
         if self.state == TrackingState.TRACKING:
-            res = self.tracker.track(view, frame, self._prior())
+            with timers.stage("track"):
+                res = self.tracker.track(view, frame, self._prior())
         elif self.params.reLocalizationWithKeyPoints:
-            res = self.tracker.relocalize(view, frame, kfdb=self.manager.kfdb)
+            with timers.stage("reloc"):
+                res = self.tracker.relocalize(view, frame, kfdb=self.manager.kfdb)
         else:
             res = TrackResult(False, None, frame, 0, 0, np.zeros(0, np.int32))
 
@@ -176,9 +179,10 @@ class System:
         if need_kf:
             self.manager.last_scale_correction = 1.0
             loops_before = self.manager.loop_closures
-            kf_slot = self.manager.new_keyframe(
-                self.map, res.frame, host_ids=res.host_ids, host_depth=res.host_depth, host_valid=res.host_valid
-            )
+            with timers.stage("mapping"):
+                kf_slot = self.manager.new_keyframe(
+                    self.map, res.frame, host_ids=res.host_ids, host_depth=res.host_depth, host_valid=res.host_valid
+                )
             if self.manager.loop_closures != loops_before:
                 # a loop moved the world: adopt the corrected keyframe pose
                 # and reset the motion model
@@ -357,6 +361,8 @@ class System:
         need = (res.n_inliers < th * ref and res.n_inliers > 15) or self.frames_since_kf >= 20
         if not need and self.cam.bl > 0:
             depth, ids, kvalid = res.host_depth, res.host_ids, res.host_valid
+            if depth is None:  # a pose the markers gave: no bundled fetch came with it
+                depth, ids, kvalid = fetch_to_host(res.frame.depth, res.frame.ids, res.frame.valid)
             close = (depth > 0) & (depth < 40.0 * self.cam.bl)
             tracked_close = int((close & (ids >= 0)).sum())
             creatable = int((close & (ids < 0) & kvalid).sum())

@@ -182,7 +182,28 @@ Phases (each prints one line or more; any failure raises and exits non-zero):
    keypoints but for 1% and the same FAST thresholds. It prints the median
    PNG decode ms a frame, steadyFPS, mappingFPS, trackingFPS and the stage
    timers of each tree (none gated). It runs in every run, even when an
-   earlier phase failed.
+   earlier phase failed;
+14. the descriptor families and the vocabulary trainer (60-frame run only):
+   (a) for FREAK and SURF, frame FRONTEND_FRAME through a FrameExtractor on
+   the card and on the CPU: the same keypoints but for 1%, descriptor bits
+   of the shared keypoints differing in at most DESC_BIT_SHARE_TOL; the
+   extract ms of ORB, FREAK and SURF (none gated); (b) for each family,
+   `UcoSlam(device="cuda")` with `Params().setParams(True, FREAK or SURF)`
+   (markers off) over the 60-frame `mono` scene -> `saveToFile` -> a fresh
+   `UcoSlam` -> `readFromFile` -> `setMode(LOCALIZATION)` -> the reverse
+   sweep, held to the JAX package's run (`data/torch_port/{freak,surf}_jax.json`):
+   pass 1 tracked >= JAX's - 2, ATE <= 1.2 x JAX's + 0.002, keyframes
+   within 1 of JAX's, the sweep tracked >= JAX's pass 2 - 2, phase 5's
+   launch rules; B1 (exact) and B2 (pose < 1e-4, the same mask) held to
+   their plain versions on inputs captured in pass 1 (the tracker's
+   HARNESS_CAPTURE_CALL-th call to each, and the last fusion's B1); the
+   `process` ms of tracking and keyframe frames; (c) `vocab_trainer.main`
+   on the card at VOCAB_WORDS words over VOCAB_FRAMES frames (harvest
+   seconds, descriptors, seconds an iteration); card and CPU train the same
+   centroids and idf on a subset (VOCAB_SUBSET: words, frames, iterations);
+   the card-trained vocabulary passes tests/test_fbow.py's revisit gate
+   (top-1 >= the random default's and >= 0.8), `data/vocab.fbow`'s top-1
+   printed beside it.
 
 The kernels' times are medians of CUDA-event timings of single launches
 (B2's batched record: of one batched launch, beside C single launches).
@@ -2714,6 +2735,221 @@ def phase_harness(frames: int, workdir: str) -> dict:
     return dict(launches=launches, trees=out, b1=b1, b2=b2)
 
 
+#: phase 14: the JAX package's FREAK and SURF runs of the mono scene
+#: (`tools/port/make_reference_map.py --descriptor freak|surf`)
+DESCRIPTOR_FAMILIES = ("freak", "surf")
+#: the share of descriptor bits on shared keypoints that may differ between
+#: card and CPU: the floor tests/test_torch_descriptors.py holds the port to
+#: against the JAX package (it measured 0-1 bits of ~131000 a frame)
+DESC_BIT_SHARE_TOL = 1e-3
+#: phase 14 (c): the trainer at the repository vocabulary's width, and the
+#: card-vs-CPU subset (words, frames harvested, iterations)
+VOCAB_WORDS, VOCAB_FRAMES, VOCAB_SUBSET = 16384, 120, (2048, 16, 2)
+
+
+def descriptor_ref(family: str) -> dict:
+    with open(os.path.join(HERE, "data", "torch_port", f"{family}_jax.json")) as f:
+        return json.load(f)
+
+
+def descriptor_params(family: str):
+    """The library's widths with the family's own gate, markers off (what
+    the JAX reference mapped with)."""
+    from ucoslam_tpu_torch.config import DescriptorType, Params
+
+    return Params().setParams(True, DescriptorType[family.upper()]).replace(detectMarkers=False)
+
+
+def frames_card_vs_cpu(params, cam, images) -> dict:
+    """The same images through a FrameExtractor on the card and one on the
+    CPU -> keypoints on each side, those of one side only (same octave, xy
+    within 1e-3 px), and the descriptor bits that differ on the shared ones."""
+    import numpy as np
+    from ucoslam_tpu_torch.features.frame_extractor import FrameExtractor
+
+    ext = {d: FrameExtractor(params, cam, d) for d in ("cuda", "cpu")}
+    out = dict(card=0, cpu=0, one_side=0, bits=0, shared=0)
+    for i, img in enumerate(images):
+        f = {d: e.process(img, i) for d, e in ext.items()}
+        kp = {}
+        for d, fr in f.items():
+            v = fr.valid.cpu().numpy()
+            kp[d] = (fr.xy.cpu().numpy()[v], fr.octave.cpu().numpy()[v], fr.desc.cpu().numpy()[v].view(np.uint32))
+        (xa, oa, da), (xb, ob, db) = kp["cuda"], kp["cpu"]
+        dist = np.abs(xa[:, None, :] - xb[None, :, :]).max(-1) + np.where(oa[:, None] != ob[None, :], np.inf, 0.0)
+        j = dist.argmin(1)
+        both = dist[np.arange(len(xa)), j] <= 1e-3
+        out["card"] += len(xa)
+        out["cpu"] += len(xb)
+        out["one_side"] += len(xa) + len(xb) - 2 * int(both.sum())
+        out["shared"] += int(both.sum())
+        out["bits"] += int(np.unpackbits((da[both] ^ db[j[both]]).view(np.uint8)).sum())
+    return out
+
+
+def descriptor_slam(family: str, scene, workdir: str) -> dict:
+    """Phase 14 (b) for one family -> the kernels' launches on its main path
+    (pass 1 and the reloaded sweep) and B1's and B2's records on its inputs."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch import Mode
+    from ucoslam_tpu_torch.api import UcoSlam
+
+    ref, (_, cam, seq, images) = descriptor_ref(family), scene
+    params = descriptor_params(family)
+    tag = f"14 {family}"
+    with contextlib.ExitStack() as stack:
+        kept = harness_capture(stack, HARNESS_CAPTURE_CALL)
+        run = slam_pass(params, cam, images)
+    slam, poses, t_frame = run["slam"], run["poses"], run["t_frame"]
+    check(slam._extractor.orb.descriptor == family, f"{tag}: the extractor describes {slam._extractor.orb.descriptor}")
+    check(len(poses) >= 3 and all(p.shape == (4, 4) and np.isfinite(p).all() for p in poses.values()),
+          f"{tag}: pass 1 tracked {len(poses)} frames or gave a non-finite pose")
+    ate = ate_of(poses, seq)
+    slam.map.check_consistency()
+    print(f"[{tag} slam] gate={params.maxDescDistance} pass 1: tracked={len(poses)} (jax {ref['pass1_tracked']}) "
+          f"ate={ate:.6f} (jax {ref['pass1_ate']:.6f}) keyframes={slam.map.n_keyframes} (jax {ref['n_keyframes']}) "
+          f"points={slam.map.n_points} (jax {ref['n_points']}) insertions={run['insertions']} "
+          f"(jax {ref['pass1_insertions']}) attempts={run['attempts']} launches={run['launches']}")
+    check(len(poses) >= ref["pass1_tracked"] - 2, f"{tag}: pass 1 tracked over 2 frames fewer than JAX's")
+    check(ate <= 1.2 * ref["pass1_ate"] + 0.002, f"{tag}: pass 1 ATE {ate} over the limit")
+    check(abs(slam.map.n_keyframes - ref["n_keyframes"]) <= 1, f"{tag}: keyframes not within 1 of JAX's")
+    check_slam_launches(run, f"{tag} pass 1")
+    launches = dict(run["launches"])
+
+    path = os.path.join(workdir, f"{family}.slm")
+    slam.saveToFile(path)
+    loc = UcoSlam(device="cuda")
+    loc.readFromFile(path, cam)
+    check(loc.getSignatureStr() == slam.getSignatureStr() and loc._extractor.orb.descriptor == family,
+          f"{tag}: the reloaded checkpoint has another signature or family")
+    loc.setMode(Mode.LOCALIZATION)
+    reset_counts()
+    rev = {}
+    for i in reversed(range(len(images))):
+        pose = loc.process(images[i], fseq=i)
+        if pose is not None:
+            rev[i] = pose
+    rev_launches, attempts = counts(), loc._system.tracker.n_attempts
+    check(len(rev) >= 3, f"{tag}: the reloaded sweep tracked only {len(rev)} frames")
+    rev_ate = ate_of(rev, seq)
+    print(f"[{tag} reload] reverse sweep: tracked={len(rev)} (jax {ref['pass2_tracked']}) ate={rev_ate:.6f} "
+          f"(jax {ref['pass2_ate']:.6f}) attempts={attempts} launches={rev_launches}")
+    check(len(rev) >= ref["pass2_tracked"] - 2, f"{tag}: the reloaded sweep tracked over 2 frames fewer than JAX's")
+    for k, n in rev_launches.items():
+        check(k == "B2_batched" or n > 0 and n == 2 * attempts,
+              f"{tag}: {k} launched {n} times for {attempts} attempts")
+        launches[k] += n
+
+    def med(ts):
+        return f"{np.median(ts):.3f}" if ts else "none"
+
+    print(f"[{tag} times] process_ms_median: track={med(t_frame['track'])} (n={len(t_frame['track'])}) "
+          f"keyframe={med(t_frame['keyframe'])} (n={len(t_frame['keyframe'])})")
+    check(all(k in kept for k in ("b1_track", "b1_fuse", "b2")), f"{tag}: no B1 / B2 inputs captured")
+    b1 = {**b1_record(kept["b1_track"], f"{tag} B1 track", f"_{family}_track"),
+          **b1_record(kept["b1_fuse"], f"{tag} B1 fuse", f"_{family}_fuse")}
+    b2 = b2_record(kept["b2"], "keypoint", f"{tag} B2", f"_{family}")
+    torch.cuda.synchronize()
+    return dict(launches=launches, b1=b1, b2=b2, t_frame=t_frame)
+
+
+def vocabulary_top1(vocab_path: str | None) -> float:
+    """tests/test_fbow.py's revisit gate on the card: each of 10 query frames
+    (the database's trajectory under a 0.15 brightness drift) retrieves its
+    own frame or a neighbour, top-1 -> the share that does; `vocab_path`
+    None: the database's default random centroids."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.features.orb import ORBExtractor
+    from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
+    from ucoslam_tpu_torch.mapping.kfdatabase import KeyFrameDataBase
+
+    seq_db = SyntheticSequence(n_frames=10, n_points=1500, seed=301)
+    seq_q = SyntheticSequence(n_frames=10, n_points=1500, seed=301, brightness_drift=0.15)
+    orb = ORBExtractor(max_features=1000)
+
+    def feats(seq):
+        return [orb.detect_and_compute(torch.from_numpy(np.asarray(seq.render(i), np.float32)).cuda())
+                for i in range(10)]
+
+    db = KeyFrameDataBase(16, device="cuda")
+    if vocab_path is not None:
+        db.load_vocabulary(vocab_path)
+    for i, f in enumerate(feats(seq_db)):
+        db.add(i, f.desc, f.valid)
+    hits = sum(abs(int(np.argmax(db.query(f.desc, f.valid)[:10])) - i) <= 1 for i, f in enumerate(feats(seq_q)))
+    return hits / 10.0
+
+
+def phase_descriptors(scene, workdir: str) -> dict:
+    """Phase 14 -> the kernels' launches on its main paths (each family's
+    pass 1 and reloaded sweep) and B1's and B2's records on their inputs."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.features import vocab_trainer
+    from ucoslam_tpu_torch.features.frame_extractor import FrameExtractor
+    from ucoslam_tpu_torch.io.fbow import default_vocab_path, load_fbow
+
+    _, cam, _, images = scene
+    # (a) one frame, card against CPU, and the extract ms of each family beside ORB's
+    extract_ms = {}
+    for family in ("orb", *DESCRIPTOR_FAMILIES):
+        params = descriptor_params(family)
+        if family != "orb":
+            fc = frames_card_vs_cpu(params, cam, [images[FRONTEND_FRAME]])
+            one_side, bits = fc["one_side"] / max(fc["card"], fc["cpu"], 1), fc["bits"] / max(256 * fc["shared"], 1)
+            print(f"[14 {family} frame] card vs CPU, frame {FRONTEND_FRAME}: keypoints {fc['card']} / {fc['cpu']}, "
+                  f"on one side only {100 * one_side:.2f}%; descriptor bits differing {fc['bits']} of "
+                  f"{256 * fc['shared']} ({100 * bits:.4f}%, tol {100 * DESC_BIT_SHARE_TOL:.2f}%)")
+            check(one_side <= 0.01, f"14 {family}: {100 * one_side:.2f}% of the keypoints on one side only")
+            check(bits <= DESC_BIT_SHARE_TOL, f"14 {family}: {100 * bits:.4f}% of the descriptor bits differ")
+        ext, ts = FrameExtractor(params, cam, "cuda"), []
+        for i in range(20):
+            t0 = time.perf_counter()
+            ext.process(images[i], i)
+            torch.cuda.synchronize()
+            ts.append(1e3 * (time.perf_counter() - t0))
+        extract_ms[family] = float(np.median(ts[2:]))
+    print("[14 extract] FrameExtractor.process ms a frame (median of 18, host clock to a synchronize): "
+          + " ".join(f"{k}={v:.3f}" for k, v in extract_ms.items()))
+
+    # (b) each family through SLAM, save, reload, sweep; B1 and B2 on its inputs
+    launches, b1, b2, frame_ms = {"B1": 0, "B2": 0, "B2_batched": 0}, {}, {}, {}
+    for family in DESCRIPTOR_FAMILIES:
+        part = descriptor_slam(family, scene, workdir)
+        launches = {k: n + part["launches"][k] for k, n in launches.items()}
+        b1.update(part["b1"])
+        b2.update(part["b2"])
+        frame_ms[family] = {k: float(np.median(v)) for k, v in part["t_frame"].items() if v}
+
+    # (c) the trainer: the repository vocabulary's width on the card
+    out = os.path.join(workdir, "vocab14.fbow")
+    log = run_app(vocab_trainer.main, ["--out", out, "--words", str(VOCAB_WORDS), "--frames", str(VOCAB_FRAMES)],
+                  os.path.join(workdir, "vocab14.log"))
+    for line in log.strip().splitlines():
+        print(f"[14 trainer] {line.strip()}")
+    check(len(load_fbow(out).desc) == VOCAB_WORDS, f"14 trainer: the vocabulary has not {VOCAB_WORDS} words")
+    words, frames, iters = VOCAB_SUBSET
+    desc, ids, n_img = vocab_trainer.harvest_descriptors(frames, device="cuda")
+    trained = {}
+    for device in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        trained[device] = vocab_trainer.train_vocabulary(desc, ids, n_img, k=words, iters=iters, device=device)
+        trained[device + "_s"] = time.perf_counter() - t0
+    same = all(np.array_equal(a, b) for a, b in zip(trained["cuda"], trained["cpu"]))
+    print(f"[14 trainer] subset: {words} words over {len(desc)} descriptors of {n_img} images, {iters} iterations: "
+          f"card {trained['cuda_s']:.3f} s, cpu {trained['cpu_s']:.3f} s; centroids and idf identical {same}")
+    check(same, "14 trainer: card and CPU give other centroids or idf")
+    acc = {name: vocabulary_top1(p) for name, p in (("card-trained", out), ("random", None),
+                                                    ("data/vocab.fbow", default_vocab_path()))}
+    print("[14 trainer] revisit top-1: " + " ".join(f"{k}={v:.2f}" for k, v in acc.items()))
+    check(acc["card-trained"] >= acc["random"] and acc["card-trained"] >= 0.8,
+          "14 trainer: the card-trained vocabulary does not pass the reference's revisit gate")
+    print(f"[14 times] process_ms_median by family and frame kind: {json.dumps(frame_ms)}")
+    return dict(launches=launches, b1=b1, b2=b2)
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -2792,9 +3028,10 @@ def main(argv=None) -> int:
                 b2["launches_batched"] = b2.get("launches_batched", 0) + part["launches"]["B2_batched"]
                 b2.update(part.get("b2", {}))
         phases = [("13", lambda: phase_harness(args.frames, workdir))]
-        if args.frames == 60:  # phases 10-12 run in the 60-frame run
+        if args.frames == 60:  # phases 10-12 and 14 run in the 60-frame run
             phases[:0] = [("10", lambda: phase_vocabulary(scene, workdir)), ("11", lambda: phase_ba_scale(workdir)),
                           ("12", lambda: phase_async(scene))]
+            phases.append(("14", lambda: phase_descriptors(scene, workdir)))
         for phase, run in phases:
             try:
                 part = run()
@@ -2806,7 +3043,7 @@ def main(argv=None) -> int:
             if part is not None and "launches" in part:
                 launches = {k: n + part["launches"][k] for k, n in launches.items()}
                 b2["launches_batched"] = b2.get("launches_batched", 0) + part["launches"]["B2_batched"]
-            for rec, key in ((b1, "b1"), (b2, "b2")):  # phase 13's records at the harness's shapes
+            for rec, key in ((b1, "b1"), (b2, "b2")):  # phases 13's and 14's records on their inputs
                 if part is not None and key in part:
                     rec.update(part[key])
                     rec["max_abs_err"] = max([rec["max_abs_err"]] + [

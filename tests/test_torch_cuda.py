@@ -519,3 +519,38 @@ def test_stereorectify_card_equals_cpu(card):
     torch.testing.assert_close(gpu.remap_grids().cpu(), cpu.remap_grids(), rtol=1e-5, atol=1e-5)
     for g, c in zip(gpu.rectify(left, right), cpu.rectify(left, right)):
         np.testing.assert_allclose(g, c, atol=1e-3 * 255, rtol=0)
+
+
+@pytest.mark.parametrize("family", ["FREAK", "SURF"])
+def test_descriptor_family_card_equals_cpu(card, family):
+    """A FREAK or SURF frame at the library's widths on the card against
+    the CPU: the same keypoints but for 1%, and descriptor bits of the
+    shared keypoints differing in at most chip_smoke.DESC_BIT_SHARE_TOL (the
+    floor the CPU tests hold the port to against the JAX package)."""
+    from ucoslam_tpu_torch.geometry.camera import CameraParams
+    from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
+
+    cam = CameraParams.create(500.0, 500.0, 320.0, 240.0)
+    seq = SyntheticSequence(cam=cam, n_frames=40, n_points=1600, seed=5)
+    c = chip_smoke.frames_card_vs_cpu(chip_smoke.descriptor_params(family.lower()), cam, [seq.render(3), seq.render(31)])
+    assert c["cpu"] > 2000 and c["one_side"] <= 0.01 * c["cpu"], c
+    assert c["bits"] <= chip_smoke.DESC_BIT_SHARE_TOL * 256 * c["shared"], c
+
+
+def test_vocabulary_trainer_card_equals_cpu(card):
+    """train_vocabulary on the card and on the CPU from the same descriptors
+    and seed: the same centroids and idf, bit for bit, with empty clusters
+    re-seeded on the way (many exact duplicates)."""
+    from ucoslam_tpu_torch.features import vocab_trainer
+
+    rng = np.random.default_rng(5)
+    base = rng.integers(0, 2**32, (300, 8), dtype=np.uint32)
+    desc = base[rng.integers(0, 300, 20000)]
+    noisy = rng.random(20000) < 0.5
+    desc[noisy] ^= rng.integers(0, 2**32, (int(noisy.sum()), 8), dtype=np.uint32) & rng.integers(
+        0, 2**32, (int(noisy.sum()), 8), dtype=np.uint32)
+    ids = np.repeat(np.arange(40), 500).astype(np.int32)
+    got = vocab_trainer.train_vocabulary(desc, ids, 40, k=1024, iters=3, device=card)
+    want = vocab_trainer.train_vocabulary(desc, ids, 40, k=1024, iters=3, device="cpu")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)

@@ -6,8 +6,11 @@
   (palette at 8 and 4 bits, with and without tRNS; grey-alpha): the port's
   decode equals cv2.imread(IMREAD_UNCHANGED) exactly, and its grey read
   equals IMREAD_GRAYSCALE exactly (tolerance 0 grey levels; the measured
-  share of differing pixels is 0); an interlaced file raises; the port's
-  encoder writes files cv2 reads back as their source.
+  share of differing pixels is 0); so do Adam7 interlaced files of every
+  colour type and bit depth, and grey and RGB files with a tRNS chunk, at
+  sizes from 1x1 to 480x640 (written by `write_png` below, since cv2 and
+  PIL write neither here); a corrupt file raises; the port's encoder
+  writes files cv2 reads back as their source.
 - `io.datasets`: the JAX package's writers (cv2) and the port's (io.png),
   from the same SyntheticSequence arguments, write the same text files byte
   for byte and the same pixels and depth; the port's readers give the JAX
@@ -124,11 +127,103 @@ def test_png_interlaced_and_corrupt_files_raise(tmp_path):
     bad_crc = bytes(data[:20]) + bytes([data[20] ^ 1]) + bytes(data[21:])
     with pytest.raises(ValueError, match="CRC"):
         png.decode(bad_crc)
-    # IHDR's interlace byte set to Adam7, its CRC recomputed
+    # IHDR's interlace byte set to Adam7 on a plain stream, its CRC
+    # recomputed: read as seven passes, a pixel byte lands where a row's
+    # filter type belongs
     data[28] = 1
     data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
-    with pytest.raises(NotImplementedError, match="interlaced"):
+    with pytest.raises(ValueError, match="filter type"):
         png.decode(bytes(data))
+
+
+def write_png(path: str, px: np.ndarray, ct: int, depth: int, interlace: bool = False, trns: bytes | None = None,
+              plte: np.ndarray | None = None) -> None:
+    """(H, W, channels) samples in the file's order (RGB) -> a PNG file of
+    colour type ct, plain or Adam7 interlaced, with the rows of each pass
+    filtered by a type drawn per row (0-4), and an optional tRNS / PLTE."""
+    rng = np.random.default_rng(px.size)
+
+    def filtered(rows: np.ndarray, bpp: int) -> bytes:
+        out, prev = [], np.zeros(rows.shape[1], np.int64)
+        for row in rows.astype(np.int64):
+            left = np.concatenate([np.zeros(bpp, np.int64), row[:-bpp]])
+            upleft = np.concatenate([np.zeros(bpp, np.int64), prev[:-bpp]])
+            p = left + prev - upleft
+            pa, pb, pc = np.abs(p - left), np.abs(p - prev), np.abs(p - upleft)
+            paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, prev, upleft))
+            t = int(rng.integers(0, 5))
+            pred = [0, left, prev, (left + prev) // 2, paeth][t]
+            out.append(bytes([t]) + ((row - pred) % 256).astype(np.uint8).tobytes())
+            prev = row
+        return b"".join(out)
+
+    h, w, ch = px.shape
+    raw = b""
+    # Adam7's seven passes: (x0, y0, dx, dy) of the pixels each holds
+    adam7 = [(0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2)]
+    for x0, y0, dx, dy in adam7 if interlace else [(0, 0, 1, 1)]:
+        sub = px[y0::dy, x0::dx]
+        if sub.size == 0:
+            continue
+        if depth >= 8:
+            wide = np.ascontiguousarray(sub, ">u2" if depth == 16 else np.uint8)
+            rows = wide.view(np.uint8).reshape(sub.shape[0], -1)
+        else:
+            bits = (sub[..., 0, None] >> np.arange(depth - 1, -1, -1)) & 1
+            rows = np.packbits(bits.astype(np.uint8).reshape(sub.shape[0], -1), axis=1)
+        raw += filtered(rows, max(1, ch * depth // 8))
+
+    def chunk(kind: bytes, payload: bytes) -> bytes:
+        return struct.pack(">I", len(payload)) + kind + payload + struct.pack(">I", zlib.crc32(kind + payload))
+
+    data = b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ct, 0, 0, int(interlace)))
+    if plte is not None:
+        data += chunk(b"PLTE", plte.astype(np.uint8).tobytes())
+    if trns is not None:
+        data += chunk(b"tRNS", trns)
+    with open(path, "wb") as f:
+        f.write(data + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+#: (colour type, bit depth, interlaced, tRNS) of each case below
+PNG_CASES = {
+    "adam7_gray1": (0, 1, True, False), "adam7_gray4": (0, 4, True, False), "adam7_gray8": (0, 8, True, False),
+    "adam7_gray16": (0, 16, True, False), "adam7_rgb8": (2, 8, True, False), "adam7_rgb16": (2, 16, True, False),
+    "adam7_palette2": (3, 2, True, False), "adam7_palette8_trns": (3, 8, True, True),
+    "adam7_gray_alpha8": (4, 8, True, False), "adam7_rgba16": (6, 16, True, False),
+    "trns_gray8": (0, 8, False, True), "trns_gray16": (0, 16, False, True), "trns_gray2": (0, 2, False, True),
+    "trns_rgb8": (2, 8, False, True), "trns_rgb16": (2, 16, False, True), "adam7_trns_rgb8": (2, 8, True, True),
+}
+
+
+@pytest.mark.parametrize("case", list(PNG_CASES))
+def test_png_adam7_and_trns_equal_cv2(tmp_path, case):
+    """Interlaced files and tRNS on grey or RGB files, as cv2 reads them:
+    a grey file's tRNS is ignored, an RGB file's makes BGRA with alpha 0
+    on the key colour; IMREAD_GRAYSCALE as for any other file."""
+    ct, depth, interlace, with_trns = PNG_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)))
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[ct]
+    for h, w in ((1, 1), (3, 5), (8, 8), (13, 11), (33, 17), (480, 640)):
+        plte = trns = None
+        if ct == 3:
+            n = min(1 << depth, 200)
+            plte, px = rng.integers(0, 256, (n, 3)), rng.integers(0, n, (h, w, 1))
+            trns = bytes(rng.integers(0, 256, min(n, 7)).astype(np.uint8)) if with_trns else None
+        else:
+            px = rng.integers(0, 1 << depth, (h, w, ch))
+            if h > 8:  # a block of one colour, so that the key colour covers many pixels
+                px[h // 3 : h // 2, w // 3 : w // 2] = px[h // 3, w // 3]
+            if with_trns:
+                trns = b"".join(struct.pack(">H", int(v)) for v in px[h // 3, w // 3])
+        path = str(tmp_path / f"{case}_{h}x{w}.png")
+        write_png(path, px, ct, depth, interlace, trns, plte)
+        want = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+        got = png.imread(path)
+        assert got.dtype == want.dtype and got.shape == want.shape, (h, w)
+        np.testing.assert_array_equal(got, want, err_msg=f"{h}x{w}")
+        np.testing.assert_array_equal(png.imread(path, gray=True), cv2.imread(path, cv2.IMREAD_GRAYSCALE),
+                                      err_msg=f"{h}x{w} grey")
 
 
 def test_png_encode_read_back_by_cv2(tmp_path):

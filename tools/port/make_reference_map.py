@@ -82,6 +82,18 @@ worker beside its tracker on an H100: 7-8 insertions in 57 tracked
 frames), and writes `mono[F]_async_jax.json`: per run the init frame,
 tracked frames, ATE, keyframe insertions, keyframes and points (the JAX
 side of chip_smoke phase 12).
+
+`--descriptor freak|surf` maps the `mono` scenario with that descriptor
+family (`Params().setParams(True, FREAK or SURF)`, its own Hamming gate,
+markers off) and writes `<family>_jax.json`: pass 1 (tracked frames, ATE,
+keyframes, points, keyframe insertions, the signature) and the reverse
+LOCALIZATION sweep of the reloaded checkpoint (tracked frames, ATE); the
+checkpoint itself goes to a temporary directory. The JAX package's FREAK
+and SURF tables have 64 rotation bins while its extractor quantizes angles
+to `ucoslam_tpu.features.orb.DESC_BINS` = 32, so its first FREAK or SURF
+frame raises (ROADMAP.md, Queue 3, known faults in the reference): for this
+run only, that module constant is set to the tables' 64 at runtime; no file
+of the package is changed.
 """
 
 from __future__ import annotations
@@ -431,6 +443,25 @@ def depth_run(kind: str, cam: CameraParams, seq: SyntheticSequence, map_path: st
                 slm_bytes=os.path.getsize(map_path))
 
 
+def descriptor_run(family: str, cam: CameraParams, seq: SyntheticSequence) -> dict:
+    """The `--descriptor` run of the module docstring -> its summary."""
+    import tempfile
+
+    import ucoslam_tpu.features.orb as orb
+    from ucoslam_tpu.config import DescriptorType
+    from ucoslam_tpu.features import descriptors
+
+    params = Params().setParams(True, DescriptorType[family.upper()]).replace(detectMarkers=False)
+    bins, orb.DESC_BINS = orb.DESC_BINS, descriptors.DESC_BINS
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            summary, rev = run(params, cam, seq, os.path.join(tmp, "map.slm"))
+    finally:
+        orb.DESC_BINS = bins
+    return dict(descriptor=family, params=dict(kpDescriptorType=family.upper(), maxDescDistance=params.maxDescDistance,
+                                               detectMarkers=False), **summary)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out-dir", default="data/torch_port")
@@ -441,6 +472,8 @@ def main(argv=None) -> None:
     ap.add_argument("--rgbd", action="store_true", help="the RGB-D scenario (see above)")
     ap.add_argument("--async-trials", type=int, default=0, help="pass 1 sequential and async (see above)")
     ap.add_argument("--voc", default=None, help="map with this .fbow vocabulary ('auto': data/vocab.fbow; see above)")
+    ap.add_argument("--descriptor", choices=("freak", "surf"), default=None,
+                    help="map with this descriptor family (see above)")
     for flag in ("reloc", "reloc-brute-force", "gap", "reseed"):
         ap.add_argument(f"--{flag}", action="store_true", help="a recovery scenario (see above)")
     args = ap.parse_args(argv)
@@ -466,6 +499,12 @@ def main(argv=None) -> None:
                           for k, v in out.items()}), flush=True)
         name = name.replace(kind, "mono")
     if args.stereo or args.rgbd:
+        return
+    if args.descriptor:
+        out = {"sequence": sequence, "camera": CAMERA, **descriptor_run(args.descriptor, cam, seq)}
+        with open(os.path.join(args.out_dir, name.replace("mono", args.descriptor) + "_jax.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        print(json.dumps(out), flush=True)
         return
     if args.markers:
         sequence = dict(MARKER_SEQUENCE, n_frames=args.frames)

@@ -26,10 +26,13 @@ of the frontend, and datasets on disk with the command-line harness
 (`io.png`, a PNG codec without cv2; `io.datasets`, TUM / EuRoC / KITTI;
 `io.exporters`; `apps.test_sequence`, `run_slam`, `test_reloc`,
 `map_export`, `compare_logs`, `analyze_logs`, `stereo_rectify`;
-`viz.viewer`; `utils.timers`). Left (ROADMAP.md, Queue 1): the port's
-benchmark, the FREAK/SURF descriptor families, the grid extractor,
-`vocab_trainer`, `stereo_calibrate` and dictionaries without native tables
-(item 7), then multi-GPU (item 8).
+`viz.viewer`; `utils.timers`), and every descriptor family: ORB, FREAK and
+SURF on the device (`features/orb.py`, `features/descriptors.py`), AKAZE and
+BRISK through the cv2 grid extractor on the host (`features/grid_extractor.py`),
+with the vocabulary trainer (`features/vocab_trainer.py`) and the chessboard
+stereo calibration (`apps/stereo_calibrate.py`, cv2). Left (ROADMAP.md, Queue
+1): the port's benchmark and dictionaries without native tables (item 7),
+then multi-GPU (item 8).
 
 This package imports neither jax nor anything of `ucoslam_tpu`: `Params`,
 `Mode` and `TrackingState` are its own (`ucoslam_tpu_torch.config`).

@@ -136,7 +136,7 @@ class UcoSlam:
             "last_kf_rot": None if sysd._last_kf_rot is None else sysd._last_kf_rot.tolist(),
             "init_failures": sysd._init_failures,
             "kfdb_dummy": sysd.manager.kfdb.dummy,
-            "fast_threshold": None if self._extractor is None else float(self._extractor.orb.fast_threshold),
+            "fast_threshold": self._fast_threshold(),
         }
         kfdb = sysd.manager.kfdb
         arrays = {
@@ -147,6 +147,12 @@ class UcoSlam:
         if kfdb.weights is not None:
             arrays["kfdb_weights"] = kfdb.weights.cpu().numpy()
         save_map(self._map, path, extra_meta=meta, extra_arrays=arrays)
+
+    def _fast_threshold(self) -> float | None:
+        """The extractor's FAST threshold; None without an extractor or for
+        the grid extractor (AKAZE, BRISK), which has none."""
+        t = getattr(self._extractor and self._extractor.orb, "fast_threshold", None)
+        return None if t is None else float(t)
 
     def readFromFile(self, path: str, cam: CameraParams) -> None:
         """Restore a session checkpoint: the map, the keyframe database and
@@ -172,7 +178,7 @@ class UcoSlam:
         sysd = self._system = System(params, cam, self._map, kfdb=kfdb, device=self.device)
         # the extractor as it was saved, the marker detector included
         self._extractor = FrameExtractor(params, cam, self.device, build_marker_detector_from_params(params, self.device))
-        if meta.get("fast_threshold") is not None:
+        if meta.get("fast_threshold") is not None and hasattr(self._extractor.orb, "fast_threshold"):
             self._extractor.orb.fast_threshold = float(meta["fast_threshold"])
         if "metric_locked" in meta:
             sysd.manager.metric_locked = bool(meta["metric_locked"])

@@ -1,1 +1,2 @@
-"""ORB feature extraction and frame ingestion."""
+"""Keypoint extraction (ORB, FREAK, SURF; AKAZE and BRISK through cv2), frame
+ingestion and the vocabulary trainer."""

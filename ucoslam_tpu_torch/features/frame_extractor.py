@@ -18,8 +18,12 @@ matrices built in its own float32 arithmetic and applied as two matmuls by
 full-resolution pixels; `autoAdjustKpSensitivity` moves the FAST threshold
 between 3 and 7 by the previous frame's fill of the detector's budget, read
 one frame late from a non-blocking copy to pinned memory, so that no frame
-waits for its own detection. The cv2 grid extractor and the other
-descriptor families are not ported.
+waits for its own detection.
+
+The descriptor families route as the reference's do: ORB, FREAK and SURF
+through `ORBExtractor(descriptor=...)` on the device; AKAZE and BRISK
+through the cv2 `GridExtractor` on the host (it needs cv2; no sensitivity
+adaptation there, as in the reference).
 """
 
 from __future__ import annotations
@@ -48,13 +52,12 @@ def points_in_quads(xy: torch.Tensor, quads: torch.Tensor, quad_valid: torch.Ten
     return (inside & quad_valid[None, :]).any(-1)
 
 
+#: the families the device extractor describes, by ORBExtractor's name
+DEVICE_FAMILIES = {DescriptorType.ORB: "orb", DescriptorType.FREAK: "freak", DescriptorType.SURF: "surf"}
+
+
 class FrameExtractor:
     def __init__(self, params: Params, cam: CameraParams, device="cuda", marker_detector=None):
-        if params.kpDescriptorType != DescriptorType.ORB:
-            raise NotImplementedError(
-                f"not ported yet: descriptor {params.kpDescriptorType.name} "
-                "(ROADMAP.md, Queue 1 item 7: the FREAK/SURF families and the grid extractor)"
-            )
         self.params = params
         self.cam = cam
         self.device = torch.device(device)
@@ -68,13 +71,19 @@ class FrameExtractor:
         if params.targetFocus > 0:
             ksf *= min(1.0, float(params.targetFocus) / float(cam.fx))
         self.ksf = ksf
-        self.orb = ORBExtractor(
-            max_features=min(params.maxFeatures, params.maxKeyPointsPerFrame),
-            n_levels=params.nOctaveLevels,
-            scale_factor=params.scaleFactor,
-            cell=64 if params.KPNonMaximaSuppresion else 32,
-            k_per_cell=1 if params.KPNonMaximaSuppresion else 4,
-        )
+        if params.kpDescriptorType in DEVICE_FAMILIES:
+            self.orb = ORBExtractor(
+                max_features=min(params.maxFeatures, params.maxKeyPointsPerFrame),
+                n_levels=params.nOctaveLevels,
+                scale_factor=params.scaleFactor,
+                cell=64 if params.KPNonMaximaSuppresion else 32,
+                k_per_cell=1 if params.KPNonMaximaSuppresion else 4,
+                descriptor=DEVICE_FAMILIES[params.kpDescriptorType],
+            )
+        else:  # AKAZE, BRISK: the reference's cv2 plug point (gridextractor.cpp:36-39)
+            from ucoslam_tpu_torch.features.grid_extractor import GridExtractor
+
+            self.orb = GridExtractor(params, device=self.device)
 
     def prefetch(self, img: np.ndarray) -> None:
         """Start the copy of the next frame's image to the device now, from
@@ -144,11 +153,12 @@ class FrameExtractor:
 
     def _base_frame_impl(self, img: np.ndarray, fseq: int) -> tuple[Frame, torch.Tensor]:
         cap = self.params.maxKeyPointsPerFrame
-        if self.params.autoAdjustKpSensitivity:
+        adjust = self.params.autoAdjustKpSensitivity and isinstance(self.orb, ORBExtractor)
+        if adjust:
             self._adjust_sensitivity()
         gray = self._gray(img)
         kps = self.detect(gray)
-        if self.params.autoAdjustKpSensitivity:
+        if adjust:
             self._keep_fill(kps.valid)
         und = self.cam.undistort_points(kps.xy) if self.cam.has_distortion() else kps.xy
 

@@ -1,12 +1,24 @@
-"""ORB keypoints: FAST per pyramid level, IC angle, rotated BRIEF.
+"""Keypoints: FAST per pyramid level, IC angle, and a 256-bit descriptor.
 
-Port of the ORB family of `ucoslam_tpu/features/orb.py`
-(`ORBExtractor._detect_and_compute`). The sampling pattern, the rotation
-bins and the in-patch blur are the reference's. Where the reference selects
-the rotated samples with a one-hot bf16 matmul, this port gathers them: a
-one-hot product selects one value, so both give the blurred intensity
-rounded to bf16, and both compare in bf16 (the one deliberate bf16 site of
-the engine).
+Port of `ucoslam_tpu/features/orb.py` (`ORBExtractor._detect_and_compute`)
+with its three descriptor families, which share detection, the support
+patches and the angle:
+
+- "orb", rotated BRIEF: the reference's sampling pattern, 32 rotation bins
+  and in-patch blur. Where the reference selects the rotated samples with a
+  one-hot bf16 matmul, this port gathers them: a one-hot product selects one
+  value, so both give the blurred intensity rounded to bf16, and both
+  compare in bf16.
+- "freak" and "surf" (`features/descriptors.py`): the angle is quantized to
+  the tables' own 64 bins. Each retina sample or subregion sum weighs all
+  961 patch pixels, so the reference's one-hot einsum (bf16 operands, the
+  result in bf16) becomes one float32 product of the bf16-rounded patch
+  with every bin's bf16-rounded table, `(N, 961) @ (961, 64 * S)`, the
+  keypoint's bin selected and rounded to bf16; no per-keypoint table is
+  gathered. The sums run in another order than XLA's, so a sample can
+  round to the neighbouring bf16 value and a comparison near a tie can
+  flip. SURF's LSH signs come from a float32 product: TF32 is turned off
+  (`slam.system.disable_tf32`), since it flips signs near zero.
 """
 
 from __future__ import annotations
@@ -16,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ucoslam_tpu_torch.features import descriptors
 from ucoslam_tpu_torch.ops.fast import fast_score_map, nms3x3, topk_grid
 from ucoslam_tpu_torch.ops.image import build_pyramid, extract_patches, gaussian_kernel1d
 
@@ -104,7 +117,16 @@ class ORBExtractor:
         fast_threshold: float = 7.0,
         cell: int = 32,
         k_per_cell: int = 4,
+        descriptor: str = "orb",
     ):
+        if descriptor not in ("orb", "freak", "surf"):
+            raise ValueError(f"unknown descriptor family {descriptor!r}")
+        if descriptor != "orb":
+            from ucoslam_tpu_torch.slam.system import disable_tf32
+
+            disable_tf32()
+        self.descriptor = descriptor
+        self._tables = {}  # device -> the family's tables there
         self.max_features = max_features
         self.n_levels = n_levels
         self.scale_factor = scale_factor
@@ -141,6 +163,8 @@ class ORBExtractor:
         raw = patches[:, b : b + P, b : b + P].reshape(-1, P * P)
         mom = raw @ torch.from_numpy(MOMENT_KERNEL).to(dev)
         ang = torch.atan2(mom[:, 1], mom[:, 0])
+        if self.descriptor != "orb":
+            return ang, self._describe_table_family(patches, raw, ang)
         bidx = torch.round(ang / (2.0 * np.pi) * DESC_BINS).to(torch.int64) % DESC_BINS
         k = gaussian_kernel1d(BLUR_K, BLUR_SIGMA)
         tmp = sum(float(k[i]) * patches[:, i : i + P, :] for i in range(BLUR_K))
@@ -149,6 +173,58 @@ class ORBExtractor:
         samp = torch.gather(blur.reshape(-1, P * P).to(torch.bfloat16), 1, index)
         bits = samp[:, 0::2] < samp[:, 1::2]  # (N, 256) pair-major endpoints
         return ang, pack_bits(bits)
+
+    def _family_tables(self, dev: torch.device) -> dict:
+        """The family's tables on `dev`, once: each bin's table rounded to
+        bf16 (as the reference's operands) and laid out (P*P, BINS * S)."""
+        key = str(dev)
+        if key not in self._tables:
+            if self.descriptor == "freak":
+                t = {"pairs": torch.from_numpy(descriptors.FREAK_PAIRS.astype(np.int64)).to(dev)}
+                src = descriptors.freak_tables()
+            else:
+                t = {"proj": torch.from_numpy(descriptors.surf_lsh_projection()).to(dev)}
+                src = descriptors.surf_tables()
+            bins, pp, s = src.shape
+            w = torch.from_numpy(src).to(torch.bfloat16).to(torch.float32)
+            t["table"] = w.permute(1, 0, 2).reshape(pp, bins * s).contiguous().to(dev)
+            t["width"] = s
+            self._tables[key] = t
+        return self._tables[key]
+
+    @staticmethod
+    def _binned(x: torch.Tensor, t: dict, bidx: torch.Tensor) -> torch.Tensor:
+        """(N, P*P) pixels -> (N, S): the bf16-rounded pixels through each
+        keypoint's bin of the table, summed in float32, rounded to bf16."""
+        s = t["width"]
+        full = x.to(torch.bfloat16).to(torch.float32) @ t["table"]  # (N, BINS * S)
+        sel = full.view(x.shape[0], -1, s).gather(1, bidx[:, None, None].expand(-1, 1, s))[:, 0]
+        return sel.to(torch.bfloat16)
+
+    def _describe_table_family(self, patches: torch.Tensor, raw: torch.Tensor, ang: torch.Tensor):
+        """FREAK or SURF descriptors (N, 8), the angle quantized to the
+        tables' DESC_BINS."""
+        P = 2 * PATCH_RADIUS + 1
+        b = BLUR_K // 2
+        nb = descriptors.DESC_BINS
+        bidx = torch.round(ang / (2.0 * np.pi) * nb).to(torch.int64) % nb
+        t = self._family_tables(raw.device)
+        if self.descriptor == "freak":
+            samp = self._binned(raw, t, bidx)  # (N, 43) smoothed retina samples
+            bits = samp[:, t["pairs"][:, 0]] < samp[:, t["pairs"][:, 1]]
+            return pack_bits(bits)
+        # SURF: central differences on the support patch, valid over the
+        # 31x31 centre, rotated into the keypoint's frame by its bin's angle
+        gx = (patches[:, b : b + P, b + 1 : b + 1 + P] - patches[:, b : b + P, b - 1 : b - 1 + P]) * 0.5
+        gy = (patches[:, b + 1 : b + 1 + P, b : b + P] - patches[:, b - 1 : b - 1 + P, b : b + P]) * 0.5
+        a_q = 2.0 * np.pi * bidx.to(torch.float32) / nb
+        ca, sa = torch.cos(a_q)[:, None], torch.sin(a_q)[:, None]
+        gxf, gyf = gx.reshape(-1, P * P), gy.reshape(-1, P * P)
+        gxr = ca * gxf + sa * gyf
+        gyr = -sa * gxf + ca * gyf
+        feats = torch.cat([self._binned(m, t, bidx) for m in (gxr, gxr.abs(), gyr, gyr.abs())], -1).to(torch.float32)
+        feats = feats / torch.linalg.norm(feats, dim=-1, keepdim=True).clamp(min=1e-6)
+        return pack_bits(feats @ t["proj"] > 0.0)
 
     def detect_and_compute(self, img: torch.Tensor) -> Keypoints:
         """img: (H, W) float32 grayscale -> Keypoints with n = max_features."""

@@ -8,7 +8,9 @@ machine lacks. This module decodes what cv2 decodes, in cv2's layout:
   BGRA for RGBA, grey-alpha (the grey replicated) and palette files with a
   tRNS chunk; uint8, or uint16 for 16-bit files (big-endian in the file);
   grey files of 1, 2 or 4 bits are scaled to 0-255, palette indices of 1, 2
-  or 4 bits expanded.
+  or 4 bits expanded. A tRNS chunk makes a palette file BGRA (the chunk's
+  alphas) and an RGB file BGRA (alpha 0 where a pixel equals the chunk's
+  colour, else the largest sample); on a grey file cv2 ignores it.
 - `imread(path, gray=True)` gives what `IMREAD_GRAYSCALE` gives: uint8;
   colour becomes (9797 R + 19234 G + 3737 B) >> 15, libpng's
   `png_set_rgb_to_gray` with OpenCV's weights 0.299 / 0.587 (the rest
@@ -16,13 +18,13 @@ machine lacks. This module decodes what cv2 decodes, in cv2's layout:
   16-bit results keep their high byte. On the files tests/test_torch_io.py
   writes with cv2 this equals cv2 exactly, grey and colour.
 
-Colour types 0, 2, 3, 4 and 6 are read; Adam7 interlaced files and a tRNS
-chunk on a grey or RGB file raise NotImplementedError. The chunks' CRCs are
-checked. The stream is inflated with `zlib`; the rows are unfiltered by
-`csrc/host/png_unfilter.cpp` (Sub, Average and Paeth each depend on the
-byte just reconstructed to their left, which numpy cannot vectorise along a
-row), built with g++ at the first decode (`utils/hostbuild.py`); a failed
-build raises.
+Colour types 0, 2, 3, 4 and 6 are read, plain or Adam7 interlaced (each of
+the seven passes unfiltered as an image of its own, then scattered into
+place). The chunks' CRCs are checked. The stream is inflated with `zlib`;
+the rows are unfiltered by `csrc/host/png_unfilter.cpp` (Sub, Average and
+Paeth each depend on the byte just reconstructed to their left, which numpy
+cannot vectorise along a row), built with g++ at the first decode
+(`utils/hostbuild.py`); a failed build raises.
 
 `encode` / `imwrite` write grey (H, W), BGR (H, W, 3) or BGRA (H, W, 4)
 arrays of uint8 or uint16 with filter type 0 on every row, compressed by
@@ -50,6 +52,10 @@ GRAY_R, GRAY_G, GRAY_B = 9797, 19234, 3737
 #: the encoder's zlib level: on a rendered 640x480 grey frame ~6x faster than
 #: level 9 for 12% more bytes
 ZLIB_LEVEL = 3
+
+
+#: Adam7's passes: (x0, y0, dx, dy) of the pixels each pass holds
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
 
 
 @dataclass(frozen=True)
@@ -121,6 +127,21 @@ def _unpack(rows: np.ndarray, width: int, depth: int) -> np.ndarray:
     return (bits * weights).sum(-1).astype(np.uint8)
 
 
+def _samples(raw: bytes, w: int, h: int, ch: int, depth: int) -> tuple[np.ndarray, bytes]:
+    """Filtered rows of a w x h image at the head of `raw` -> its (h, w, ch)
+    samples (uint8, or uint16 at 16 bits; sub-byte samples unpacked, not
+    scaled), and the bytes after them."""
+    rowbytes = (w * ch * depth + 7) // 8
+    rows = _unfilter(raw, h, rowbytes, max(1, ch * depth // 8))
+    if depth == 16:
+        px = rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    elif depth == 8:
+        px = rows.reshape(h, w, ch)
+    else:
+        px = _unpack(rows, w, depth)[..., None]
+    return px, raw[h * (rowbytes + 1) :]
+
+
 def decode(data: bytes) -> np.ndarray:
     """PNG bytes -> array in cv2.imread(IMREAD_UNCHANGED)'s layout."""
     info, plte, trns, idat = None, None, None, []
@@ -135,26 +156,25 @@ def decode(data: bytes) -> np.ndarray:
             idat.append(payload)
     if info is None:
         raise ValueError("PNG without IHDR")
-    if info.interlace:
-        raise NotImplementedError("Adam7 interlaced PNG files are not read (ROADMAP.md, Queue 1 item 7)")
     ct, depth, w, h = info.color_type, info.bit_depth, info.width, info.height
     if ct not in CHANNELS:
         raise ValueError(f"PNG colour type {ct} does not exist")
-    if trns is not None and ct in (0, 2):
-        raise NotImplementedError("a tRNS chunk on a grey or RGB PNG is not read")
+    if info.interlace not in (0, 1):
+        raise ValueError(f"PNG interlace method {info.interlace} does not exist")
     if depth not in (8, 16) and not (ct in (0, 3) and depth in (1, 2, 4)):
         raise ValueError(f"PNG colour type {ct} at {depth} bits")
     ch = CHANNELS[ct]
-    rowbytes = (w * ch * depth + 7) // 8
-    rows = _unfilter(zlib.decompress(b"".join(idat)), h, rowbytes, max(1, ch * depth // 8))
-    if depth == 16:
-        px = rows.view(">u2").astype(np.uint16).reshape(h, w, ch)
-    elif depth == 8:
-        px = rows.reshape(h, w, ch)
+    raw = zlib.decompress(b"".join(idat))
+    if info.interlace:
+        px = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = max(0, -(-(w - x0) // dx)), max(0, -(-(h - y0) // dy))
+            if pw and ph:  # an empty pass has no rows in the stream
+                px[y0::dy, x0::dx], raw = _samples(raw, pw, ph, ch, depth)
     else:
-        px = _unpack(rows, w, depth)[..., None]
-        if ct == 0:
-            px = px * np.uint8(255 // ((1 << depth) - 1))
+        px, _ = _samples(raw, w, h, ch, depth)
+    if ct == 0 and depth < 8:
+        px = px * np.uint8(255 // ((1 << depth) - 1))
     if ct == 3:
         if plte is None:
             raise ValueError("palette PNG without PLTE")
@@ -164,13 +184,20 @@ def decode(data: bytes) -> np.ndarray:
             alpha[: len(trns)] = np.frombuffer(trns, np.uint8)[: len(plte)]
             return np.ascontiguousarray(np.dstack([rgb[..., ::-1], alpha[px[..., 0]]]))
         return np.ascontiguousarray(rgb[..., ::-1])
-    if ct == 0:
+    if ct == 0:  # cv2 ignores a tRNS chunk on a grey file
         return np.ascontiguousarray(px[..., 0])
     if ct == 4:  # grey-alpha: cv2 gives BGRA with the grey replicated
         g, a = px[..., 0], px[..., 1]
         return np.ascontiguousarray(np.stack([g, g, g, a], -1))
     if ct == 2:
-        return np.ascontiguousarray(px[..., ::-1])
+        bgr = px[..., ::-1]
+        if trns is None:
+            return np.ascontiguousarray(bgr)
+        # the chunk's colour (three 16-bit samples, R G B) is transparent
+        key = np.array(struct.unpack(">HHH", trns[:6]), np.uint32)
+        opaque = np.iinfo(px.dtype).max
+        alpha = np.where((px.astype(np.uint32) == key).all(-1), 0, opaque).astype(px.dtype)
+        return np.ascontiguousarray(np.dstack([bgr, alpha]))
     return np.ascontiguousarray(px[..., [2, 1, 0, 3]])
 
 

@@ -203,7 +203,34 @@ Phases (each prints one line or more; any failure raises and exits non-zero):
    centroids and idf on a subset (VOCAB_SUBSET: words, frames, iterations);
    the card-trained vocabulary passes tests/test_fbow.py's revisit gate
    (top-1 >= the random default's and >= 0.8), `data/vocab.fbow`'s top-1
-   printed beside it.
+   printed beside it;
+15. every marker dictionary and bundle adjustment across ranks (60-frame run
+   only): (a) for each of the 22 committed dictionary tables, two views of
+   DICT_VIEW markers rendered at 640x480 by the port's renderer with the
+   texture replaced (`tools/port/marker_render.py`) through
+   `ArucoDetector(name, device="cuda").detect`: exactly the rendered ids,
+   corners within DICT_CORNER_BOUND px of the projected ones (the bound
+   tests/test_torch_dictionaries.py holds); then one SLAM pass with
+   `aruco_Dictionary` TAG36h11 over the `markers` scene (ten 0.6 m markers)
+   cut to DICT_SLAM_FRAMES frames, held as phase 8 (a) to the JAX package's
+   pass over the same pixels with its cv2 backend
+   (`data/torch_port/markers_tag36h11_jax.json`): tracked >= JAX's - 2,
+   metric ATE <= 1.2 x JAX's + 0.002, markers with a map pose >= JAX's - 1,
+   phase 5's launch rules; B1 (the last fusion, exact) and B2 (the first
+   call with 2 live markers: pose < 1e-4, the same mask) held to their plain versions on inputs
+   captured in the pass; (b) the sharded solvers in worlds of ranks started
+   by `parallel.distributed.spawn`: bench.py's problem (ba_scale_problem,
+   128 x 16384 x 131072) point-major at world 1 on NCCL against the
+   single-device solve in this process (cost histories within 1e-5
+   relative, poses within 1e-4) and at world 2 on gloo with both ranks on
+   cuda:0 (cost within 1e-4 relative, the CPU tests' tolerance; the
+   solution, whose scale this problem leaves free, in phase 11's gauge-free
+   ba_gap measures), their collectives (one a relinearization, two an LM step,
+   none in PCG) and ms an LM step beside the single device's; the pass's
+   marker map through `sharded_ba_solve` at world 2 against `ba_solve`
+   (the same tolerance); a 128-keyframe ring's pose graph through
+   `sharded_pose_graph_solve` at world 2 against `pose_graph_solve` (poses
+   within 1e-4). A rank that fails fails the phase.
 
 The kernels' times are medians of CUDA-event timings of single launches
 (B2's batched record: of one batched launch, beside C single launches).
@@ -1576,17 +1603,17 @@ def depth_input(kind: str, seq, i: int) -> tuple:
     return img, np.clip(np.asarray(z) * 5000.0, 0, 65535).astype(np.uint16)
 
 
-def b2_capture(stack: contextlib.ExitStack, rows: str = "marker") -> dict:
+def b2_capture(stack: contextlib.ExitStack, rows: str = "marker", min_markers: int = 4) -> dict:
     """Keeps in the returned dict, while `stack` is open, the tracker's B2
-    inputs of the first call with at least 4 live markers among its corner
-    rows (`rows` "marker"), or with depth on at least 100 valid rows
-    ("depth")."""
+    inputs of the first call with at least `min_markers` live markers among
+    its corner rows (`rows` "marker"), or with depth on at least 100 valid
+    rows ("depth")."""
     from ucoslam_tpu_torch.slam import tracker
 
     kept = {}
 
     def around(inner, pose0, X, uv, sig, valid, cam, depth=None, bf=None, iters=10, rounds=4):
-        live = (int(valid[-64:].sum()) >= 16 if rows == "marker"
+        live = (int(valid[-64:].sum()) >= 4 * min_markers if rows == "marker"
                 else depth is not None and int(((depth > 0) & valid).sum()) >= 100)
         if not kept and live:
             kept.update(tensors=[t.clone() for t in (pose0, X, uv, sig, valid)], cam=cam, iters=iters, rounds=rounds,
@@ -2950,6 +2977,208 @@ def phase_descriptors(scene, workdir: str) -> dict:
     return dict(launches=launches, b1=b1, b2=b2)
 
 
+#: phase 15: the marker views of tools/port/marker_render.py per table, the
+#: corner bound against the projected corners (tests/test_torch_dictionaries.py
+#: measured 0.193 px on the CPU), the frames of the TAG36h11 SLAM pass
+DICT_CORNER_BOUND, DICT_SLAM_FRAMES = 0.25, 60
+DICT_SLAM_REF = os.path.join(HERE, "data", "torch_port", "markers_tag36h11_jax.json")
+#: phase 15 (b): bench.py's BA problem, the LM steps of the solves
+SHARD_BA_SHAPE, SHARD_BA_ITERS = (128, 16384, 8), 20
+
+
+def ring_pose_graph(n: int = 128, drift: float = 0.02, seed: int = 3):
+    """A ring of n Sim3 keyframes (tests/test_posegraph.py's ring_problem at
+    n, numpy): odometry edges carry the true relative motion, the starting
+    poses integrate a drifted one with a 1% scale drift a step, one loop
+    edge closes the ring; keyframe 0 fixed -> the port's PoseGraphProblem (CPU)."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.optim.posegraph import PoseGraphProblem
+
+    rng = np.random.default_rng(seed)
+    true = []
+    for k in range(n):
+        a = 2 * np.pi * k / n
+        T = se3_exp_np(np.array([3 * np.sin(a), 0.0, 3 - 3 * np.cos(a), 0.0, a, 0.0], np.float32))
+        true.append(T.astype(np.float64))
+    noisy, acc = [true[0]], true[0]
+    for k in range(1, n):
+        rel = true[k] @ np.linalg.inv(true[k - 1])
+        d = se3_exp_np(rng.normal(0, drift, 6).astype(np.float32)).astype(np.float64)
+        S = d @ rel
+        S[:3, :3] *= 1.01  # the scale drifts too
+        acc = S @ acc
+        noisy.append(acc)
+    ei = list(range(n - 1)) + [n - 1]
+    ej = list(range(1, n)) + [0]
+    meas = [true[i] @ np.linalg.inv(true[j]) for i, j in zip(ei, ej)]
+    w = [50.0] * (n - 1) + [200.0]
+    fixed = np.zeros(n, bool)
+    fixed[0] = True
+    return PoseGraphProblem(
+        poses=torch.from_numpy(np.stack(noisy).astype(np.float32)), fixed=torch.from_numpy(fixed),
+        edge_i=torch.tensor(ei), edge_j=torch.tensor(ej), edge_meas=torch.from_numpy(np.stack(meas).astype(np.float32)),
+        edge_weight=torch.tensor(w), edge_valid=torch.ones(n, dtype=torch.bool))
+
+
+def phase_dictionaries(workdir: str) -> dict:
+    """Phase 15 (a) -> the kernels' launches on the TAG36h11 pass and their
+    records on its inputs, and the pass's map (for (b))."""
+    import numpy as np
+    from tools.port.marker_render import dictionary_frames, dictionary_scene
+    from ucoslam_tpu_torch.config import Params
+    from ucoslam_tpu_torch.geometry.camera import CameraParams
+    from ucoslam_tpu_torch.markers import dictionary
+    from ucoslam_tpu_torch.markers.detector import ArucoDetector
+
+    cam = CameraParams.create(500.0, 500.0, 320.0, 240.0)
+    names = [f"DICT_{f}_{s}" for f in ("4X4", "5X5", "6X6", "7X7") for s in (50, 100, 250, 1000)] + [
+        "DICT_APRILTAG_16h5", "DICT_APRILTAG_25h9", "DICT_APRILTAG_36h10", "DICT_APRILTAG_36h11",
+        "DICT_ARUCO_ORIGINAL", "DICT_ARUCO_MIP_36h12"]
+    worst, n_markers, t0 = 0.0, 0, time.perf_counter()
+    for name in names:
+        det = ArucoDetector(name, marker_size=0.6, device="cuda")
+        for gray, oracle in dictionary_frames(name):
+            fm = det.detect(gray, cam)
+            ids = sorted(int(i) for i in fm.id[fm.valid])
+            check(ids == sorted(oracle), f"(a) {name}: detected {ids}, rendered {sorted(oracle)}")
+            for i, c in zip(fm.id[fm.valid], fm.corners[fm.valid]):
+                bm = dictionary.marker_bitmap(int(i), name)
+                gap = np.abs(c - oracle[int(i)]).max()
+                if (np.rot90(bm, 2) == bm).all():  # a code equal to its own half-turn
+                    gap = min(gap, np.abs(np.roll(c, 2, 0) - oracle[int(i)]).max())
+                worst = max(worst, float(gap))
+            check(np.isfinite(fm.pose1[fm.valid]).all(), f"(a) {name}: a non-finite IPPE pose")
+            n_markers += len(ids)
+    check(worst < DICT_CORNER_BOUND, f"(a): a corner {worst} px from the projected one")
+    print(f"[15 dictionaries] (a) tables={len(names)} views={2 * len(names)} markers={n_markers} all ids exact "
+          f"corner_max_err_px={worst:.4f} (bound {DICT_CORNER_BOUND}) s={time.perf_counter() - t0:.1f}")
+
+    with open(DICT_SLAM_REF) as f:
+        ref = json.load(f)
+    j1, p = ref["pass1"], ref["params"]
+    check(ref["sequence"]["n_frames"] == DICT_SLAM_FRAMES, "the TAG36h11 reference's length")
+    seq, ids, images, truth = dictionary_scene(p["aruco_Dictionary"], ref["sequence"], cam=cam)
+    check({str(k): v for k, v in ids.items()} == ref["ids"], "the reference drew other codewords")
+    params = Params().replace(**p)
+    with contextlib.ExitStack() as stack:
+        b2_args = b2_capture(stack, "marker", min_markers=2)
+        run = slam_pass(params, cam, images)
+    slam, poses = run["slam"], run["poses"]
+    check_slam_launches(run, "(a) TAG36h11 pass")
+    ms = metric_summary(poses, seq)
+    me = marker_errors(*slam.map.h("mk_id", "mk_pose", "mk_pose_valid"), poses, seq, truth)
+    print(f"[15 dictionaries] (a) TAG36h11 pass (jax: cv2 backend {ref['backend']}): frames={len(images)} "
+          f"tracked={len(poses)} (jax {j1['tracked']}) metric_ate={ms['metric_ate']:.6f} (jax "
+          f"{j1['metric_ate']:.6f}) markers_posed={me['markers_posed']} (jax {j1['markers_posed']}) "
+          f"marker_err_mean={me['marker_err_mean']} (jax {j1['marker_err_mean']}) keyframes={slam.map.n_keyframes} "
+          f"(jax {j1['keyframes']}) init={run['init']} (jax {j1['init']}) launches={run['launches']}")
+    check(len(poses) >= j1["tracked"] - 2, "(a) TAG36h11: tracked over 2 frames fewer than the JAX package")
+    check(ms["metric_ate"] <= 1.2 * j1["metric_ate"] + 0.002, f"(a) TAG36h11: metric ATE {ms['metric_ate']}")
+    check(me["markers_posed"] >= j1["markers_posed"] - 1, "(a) TAG36h11: fewer markers posed than JAX's - 1")
+    check(b2_args, "(a) TAG36h11: no frame had 2 live markers in the tracker's rows")
+    return dict(launches=run["launches"], slam=slam, cam=cam,
+                b2=b2_record(b2_args, "marker", "15 B2 TAG36h11 marker rows", "_tag36h11"),
+                b1=b1_record(run["fuse_args"], "15 B1 TAG36h11 fusion", "_tag36h11"))
+
+
+def phase_sharded(marker_map, cam) -> dict:
+    """Phase 15 (b): the sharded solvers in two worlds of ranks on the card,
+    one NCCL rank and two gloo ranks on cuda:0, each running all its cases
+    in one world."""
+    import numpy as np
+    from tools.port import parallel_tasks
+    from ucoslam_tpu_torch.optim import ba, posegraph, schur_pm
+    from ucoslam_tpu_torch.parallel.distributed import spawn, to_host
+    from ucoslam_tpu_torch.parallel.sharded_ba import shard_ba_problem
+    from ucoslam_tpu_torch.parallel.sharded_posegraph import shard_pose_graph_problem
+
+    def close(got, want, what, cost_tol, pose_tol):
+        c = np.asarray(want[1])
+        rel = float(np.max(np.abs(got["costs"] - c) / c))
+        dp = float(np.abs(got["cam_pose"] - np.asarray(want[0])).max())
+        check(rel <= cost_tol and dp <= pose_tol, f"(b) {what}: cost history {rel} relative, poses {dp} apart")
+        return rel, dp
+
+    # bench.py's problem, point-major (the tables built once, on the host)
+    cam_args = dict(zip(("fx", "fy", "cx", "cy"), BA_CAMERA))
+    arrays = ba_scale_problem(*SHARD_BA_SHAPE)
+    problem, bcam = ba_problem_on(arrays, "cuda")
+    pm = schur_pm.pm_problem_for(problem)
+    check(pm is not None, "(b): bench.py's problem is not point-major")
+    single = schur_pm.pm_staged_lm(pm, bcam, iters=SHARD_BA_ITERS, stages=2)
+    want = (single[0].cpu().numpy(), single[2].cpu().numpy())
+    ms_single = ba_ms_per_iteration(problem, bcam, "auto")[0]
+    pm_host = to_host(pm)
+    # the TAG36h11 pass's marker map (the general sharded solver) and a
+    # 128-keyframe ring's pose graph, solved here on one device
+    mproblem, _, _, mk_slots = ba.build_ba_problem(marker_map, cam)
+    check(len(mk_slots) > 0, "(b): the marker map has no marker vertex")
+    mres = ba.ba_solve(mproblem, cam, iters=10, stages=2, solver="dense")
+    pg = ring_pose_graph(128)
+    pg_single = posegraph.pose_graph_solve(pg.__class__(**{k: v.cuda() for k, v in vars(pg).items()}), iters=20)
+    mcam = dict(fx=float(cam.fx), fy=float(cam.fy), cx=float(cam.cx), cy=float(cam.cy))
+    pm_jobs = [("pm", (pm_host, cam_args, SHARD_BA_ITERS, 2), {}), ("pm_step_ms", (pm_host, cam_args), {})]
+    t0 = time.perf_counter()
+    w1 = spawn(parallel_tasks.batch, 1, pm_jobs, timeout=300, backend="nccl", device="cuda")
+    w2 = spawn(parallel_tasks.batch, 2, pm_jobs + [
+        ("ba", (to_host(shard_ba_problem(mproblem, 2)), mcam, 10, 2, "dense"), {}),
+        ("posegraph", (to_host(shard_pose_graph_problem(pg, 2)), 20, False), {})],
+        timeout=300, backend="gloo", device="cuda:0")
+    t_worlds = time.perf_counter() - t0
+
+    n_macro = -(-SHARD_BA_ITERS // 6)
+    R = -(-SHARD_BA_ITERS // n_macro)
+    expect = 2 * (1 + n_macro * (1 + 2 * R))
+    with open(BA_REF_PATHS[0]) as f:
+        spread = {pair: {k: v for k, v in gap.items() if k != "cost"} for pair, gap in json.load(f)["spread"].items()}
+    for what, world in (("world 1 nccl", w1), ("world 2 gloo cuda:0", w2)):
+        got = world[0][0]
+        if world is w1:  # one rank: the all_reduce is a copy, the solve the single device's
+            rel, dp = close(got, want, what, 1e-5, 1e-4)
+            detail = ""
+        else:
+            # two ranks sum the camera system in another order; bench.py's
+            # problem leaves the scale free (phase 11), so past the cost the
+            # solution is held in ba_gap's gauge-free measures to twice the
+            # reference's own route gaps, as phase 11 holds it
+            rel, _ = close(got, want, what, 1e-4, float("inf"))
+            dp = float(np.abs(got["cam_pose"] - want[0]).max())
+            gap = ba_gap((got["cam_pose"], got["pt_pos"][:SHARD_BA_SHAPE[1]]), (want[0], single[1].cpu().numpy()),
+                         arrays)
+            bad = ba_gap_failures(gap, spread)
+            check(not bad, f"(b) {what}: {bad} past twice the reference's route gaps: {gap}")
+            detail = " ba_gap=" + json.dumps({k: round(v, 6) for k, v in gap.items()})
+        check(all(r[0]["collectives"] == expect for r in world), f"(b) {what}: collectives {got['collectives']} "
+              f"(expected {expect})")
+        steps = world[0][1]
+        check(steps["collectives_per_step"] == 2 and steps["collectives_per_relin"] == 1,
+              f"(b) {what}: the point-major collective profile {steps}")
+        print(f"[15 sharded] (b) bench BA point-major {what}: ranks={len(world)} devices="
+              f"{[r[0]['device'] for r in world]} cost_rel_err={rel:.3e} pose_max_abs_err={dp:.3e}{detail} "
+              f"collectives={got['collectives']} (= stages x (1 + relinearizations x (1 + 2 x steps))) "
+              f"ms_per_lm_step={steps['ms_per_step']:.3f} collectives_per_lm_step={steps['collectives_per_step']} "
+              f"collectives_per_relinearization={steps['collectives_per_relin']}")
+    print(f"[15 sharded] (b) ms an LM step (point-major, {SHARD_BA_SHAPE[0]} keyframes): single device "
+          f"{ms_single:.3f} (phase 11's measure), world 1 nccl {w1[0][1]['ms_per_step']:.3f}, world 2 gloo on one "
+          f"card {w2[0][1]['ms_per_step']:.3f}; none of the collectives in PCG; both worlds' s={t_worlds:.1f}")
+
+    mw = w2[0][2]
+    rel, dp = close(mw, (mres.cam_pose.cpu().numpy(), mres.cost_history.cpu().numpy()), "marker map", 1e-4, 1e-3)
+    dm = float(np.abs(mw["mk_pose"] - mres.mk_pose.cpu().numpy()).max())
+    check(dm <= 1e-3, f"(b) marker map: marker poses {dm} apart")
+    print(f"[15 sharded] (b) marker map ({int(mproblem.cam_valid.sum())} keyframes, {len(mk_slots)} markers, "
+          f"{int(mproblem.obs_valid.sum())} observations) sharded_ba_solve world 2 gloo cuda:0: cost_rel_err={rel:.3e} "
+          f"pose_max_abs_err={dp:.3e} marker_pose_max_abs_err={dm:.3e} collectives={mw['collectives']}")
+    pw = w2[0][3]
+    d = float(np.abs(pw["poses"] - pg_single.cpu().numpy()).max())
+    moved = float(np.abs(pg_single.cpu().numpy() - pg.poses.numpy()).max())
+    check(d <= 1e-4 and moved > 1e-2, f"(b) ring pose graph: sharded poses {d} from single, moved {moved}")
+    print(f"[15 sharded] (b) 128-keyframe ring pose graph sharded_pose_graph_solve world 2 gloo cuda:0: "
+          f"pose_max_abs_err={d:.3e} (the solve moved poses by {moved:.3f}) collectives={pw['collectives']}")
+    return dict(ms_single=ms_single, ms_world1=w1[0][1]["ms_per_step"], ms_world2=w2[0][1]["ms_per_step"])
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3032,6 +3261,14 @@ def main(argv=None) -> int:
             phases[:0] = [("10", lambda: phase_vocabulary(scene, workdir)), ("11", lambda: phase_ba_scale(workdir)),
                           ("12", lambda: phase_async(scene))]
             phases.append(("14", lambda: phase_descriptors(scene, workdir)))
+
+            def phase15():
+                part = phase_dictionaries(workdir)
+                lap("15 dictionaries")
+                phase_sharded(part.pop("slam").map, part.pop("cam"))
+                return part
+
+            phases.append(("15", phase15))
         for phase, run in phases:
             try:
                 part = run()

@@ -28,7 +28,9 @@ def test_port_import_leaves_jax_out():
         "import ucoslam_tpu_torch.io.png, ucoslam_tpu_torch.io.datasets, ucoslam_tpu_torch.io.exporters\n"
         "import ucoslam_tpu_torch.utils.timers, ucoslam_tpu_torch.utils.hostbuild, ucoslam_tpu_torch.viz.viewer\n"
         "from ucoslam_tpu_torch.apps import analyze_logs, compare_logs, map_export, run_slam\n"
-        "from ucoslam_tpu_torch.apps import stereo_rectify, test_reloc, test_sequence\n"
+        "from ucoslam_tpu_torch.apps import stereo_rectify, test_reloc, test_sequence, bench_scaling\n"
+        "import ucoslam_tpu_torch.parallel, ucoslam_tpu_torch.parallel.sharded_pm, ucoslam_tpu_torch.markers.predefined\n"
+        "import tools.port.parallel_tasks, tools.port.marker_render\n"
         "import chip_smoke\n"
         "assert 'jax' not in sys.modules, 'jax imported'\n"
         "assert 'ucoslam_tpu' not in sys.modules, 'ucoslam_tpu imported'\n"
@@ -52,7 +54,8 @@ def test_port_import_leaves_jax_out():
 
 def test_port_sources_never_import_jax():
     pkg = os.path.join(REPO, "ucoslam_tpu_torch")
-    paths = [os.path.join(REPO, "chip_smoke.py")]
+    paths = [os.path.join(REPO, "chip_smoke.py")] + [os.path.join(REPO, "tools", "port", name)
+                                                    for name in ("parallel_tasks.py", "marker_render.py")]
     for root, _, files in os.walk(pkg):
         paths += [os.path.join(root, name) for name in files if name.endswith(".py")]
     for path in paths:

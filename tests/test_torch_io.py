@@ -402,3 +402,33 @@ def test_presets_and_format_detection_equal_reference(tmp_path):
     assert got.keys() == want.keys()
     for k in want:
         np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_pmvs_remap_runs_where_the_map_lives(tmp_path, monkeypatch):
+    """export_pmvs undistorts each keyframe image on the map's device (a map
+    on the card remaps there, not on the CPU), to cv2.undistort's pixels
+    within 1 grey level away from the border, as the reference's cv2 call."""
+    from ucoslam_tpu_torch.geometry.camera import CameraParams
+    from ucoslam_tpu_torch.io import exporters
+    from ucoslam_tpu_torch.io.serialize import load_map
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    m = load_map(os.path.join(repo, "data", "torch_port", "mono_map.slm"), "cpu")
+    dist = [-0.2, 0.05, 0.001, -0.001, 0.0]
+    cam = CameraParams.create(500.0, 500.0, 320.0, 240.0, dist=dist)
+    rng = np.random.default_rng(1)
+    img = cv2.GaussianBlur(rng.integers(0, 256, (480, 640), dtype=np.uint8), (0, 0), 3)
+    devices = []
+    inner = exporters.undistort_image
+
+    def spy(im, c, **kw):  # the device must be passed: the default is the CPU
+        devices.append(kw.get("device"))
+        return inner(im, c, **kw)
+
+    monkeypatch.setattr(exporters, "undistort_image", spy)
+    fseq = int(m.h("kf_fseq")[m.keyframes.active_slots()][0])
+    exporters.export_pmvs(m, cam, str(tmp_path / "pmvs"), images={fseq: img})
+    assert len(devices) == 1 and devices[0] is not None and torch.device(devices[0]) == torch.device(m.device)
+    got = cv2.imread(str(tmp_path / "pmvs" / "visualize" / "00000000.ppm"), cv2.IMREAD_UNCHANGED)
+    want = cv2.undistort(img, np.array([[500.0, 0, 320], [0, 500, 240], [0, 0, 1]]), np.array(dist))
+    assert np.abs(got.astype(int) - want)[20:-20, 20:-20].max() <= 1

@@ -1,10 +1,11 @@
 """The port's marker modules against the reference's, on the same inputs.
 
 - dictionary codewords and marker textures: bit-equal;
-- the native detector the port builds (build/ucoslam_tpu_torch/, never
-  native/) against the reference's on the same rendered image: the same ids
-  and bit-equal corners (one C++ source, the same flags); the full
-  ArucoDetector.detect (IPPE included) alike;
+- the native detector the port builds (its copy of native/'s source, into
+  build/ucoslam_tpu_torch/, never native/) against the reference's on the
+  same rendered image: the same ids and bit-equal corners (the same code for
+  the native tables, the same flags); the full ArucoDetector.detect (IPPE
+  included) alike; a dictionary neither package resolves raises in both;
 - IPPE on tests/test_markers.py's cases, with 0.5 px corner noise so that
   the best pose's error is not zero: poses within 1e-4 and err_ratio within
   1e-3 (relative) where err_ratio >= 1.5; the frontal-ambiguous and the
@@ -115,9 +116,15 @@ def test_aruco_detector_equals_reference(scenes):
     assert np.abs(got.pose1[v] - np.asarray(want.pose1)[v]).max() < 1e-3
 
 
-def test_detector_without_native_table_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        ArucoDetector("TAG36h11", device="cpu")
+def test_unknown_dictionary_raises_in_both():
+    """A name the reference cannot resolve (cv2.aruco has no
+    DICT_ARUCO_MIP_25h7) raises in the port too, naming it; every name the
+    reference resolves builds (tests/test_torch_dictionaries.py)."""
+    with pytest.raises(AttributeError):
+        RefDetector("ARUCO_MIP_25h7", backend="cv2")
+    with pytest.raises(ValueError, match="ARUCO_MIP_25h7"):
+        ArucoDetector("ARUCO_MIP_25h7", device="cpu")
+    assert ArucoDetector("TAG36h11", device="cpu").spec.max_correction == 3
 
 
 def _project(T, size):

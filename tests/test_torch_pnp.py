@@ -144,3 +144,31 @@ def test_batched_plain_matches_vmapped_pallas():
         p1, i1 = lm_kernel.motion_only_lm_plain(*(torch.from_numpy(stack[k][c]) for k in names), FX, FY, CX, CY,
                                                 iters=10, rounds=2)
         assert torch.equal(p1, pose[c]) and torch.equal(i1, inl[c])
+
+
+def test_dlt_pose_far_from_the_world_origin():
+    """The DLT of points a few of their spreads from the world origin (a map
+    far from where it started, as the 150-frame `loop` run's): exact
+    projections, and nearly every hypothesis must be the true pose. In
+    float32 the null vector of A^T A is lost there (none of 256 right at an
+    offset of (20, 10, 30)); the port computes it in float64. The
+    reference's float32 DLT is printed beside it (a fault there too)."""
+    rng = np.random.default_rng(5)
+    offset = np.array([20.0, 10.0, 30.0], np.float32)
+    X = (rng.uniform(-2, 2, (300, 3)) + offset).astype(np.float32)
+    T = np.asarray(se3_exp(jnp.asarray((0.1, -0.05, 0.02, 0.03, -0.02, 0.01), jnp.float32))).copy()
+    T[:3, 3] += -T[:3, :3] @ offset + np.array([0.0, 0.0, 6.0], np.float32)
+    q = X @ T[:3, :3].T + T[:3, 3]
+    uv = np.stack([500 * q[:, 0] / q[:, 2] + 320, 500 * q[:, 1] / q[:, 2] + 240], -1).astype(np.float32)
+    uvn = np.stack([(uv[:, 0] - 320.0) / 500.0, (uv[:, 1] - 240.0) / 500.0], -1).astype(np.float32)
+    idx = rng.integers(0, 300, (256, 6))
+    hyp = _dlt_pose(torch.from_numpy(X[idx]), torch.from_numpy(uvn[idx]))
+    assert hyp.dtype == torch.float32
+    good = np.abs(hyp.numpy() - T).max((1, 2)) < 0.01
+    hyp_ref = np.asarray(jax.vmap(ref_dlt_pose)(jnp.asarray(X[idx]), jnp.asarray(uvn[idx])))
+    print(f"hypotheses right: port {good.sum()} / 256, reference {(np.abs(hyp_ref - T).max((1, 2)) < 0.01).sum()}")
+    assert good.sum() >= 0.9 * 256
+    # and RANSAC finds every row an inlier
+    res = pnp_ransac(torch.from_numpy(X), torch.from_numpy(uv), torch.ones(300), torch.ones(300, dtype=torch.bool),
+                     CAM, torch.from_numpy(idx))
+    assert int(res.n_inliers) == 300

@@ -27,6 +27,16 @@ run_scenario.py share one file:
 
 `--jobs N` runs the scenarios in N child processes at once. Imports nothing
 of the port (from chip_smoke only its scenario table and camera writer).
+
+`--init-seeds N` runs each scenario once for each of N keys of the two-view
+init's draws (0x1717, the package's own, then 1, 2, ...; every
+`MapInitializer` the harness builds takes the key, in place of 0x1717) and
+writes the runs as a spread (default
+`data/torch_port/<scenario><frames>_harness_spread_jax.json`) for
+`tools/port/slam_spread.py --compare`, beside the port's
+(`tools/port/run_scenario.py --png --init-seeds N`):
+
+    JAX_PLATFORMS=cpu python -m tools.port.harness_reference --frames 150 --scenario loop --init-seeds 8 --jobs 4
 """
 
 from __future__ import annotations
@@ -71,7 +81,31 @@ def parse_harness(text: str) -> dict:
     return out
 
 
-def run_one(name: str, frames: int, workdir: str) -> dict:
+@contextlib.contextmanager
+def init_key(seed: int | None):
+    """Every MapInitializer built inside draws from PRNGKey(seed) (None: the
+    package's own 0x1717); the package's class is restored on exit."""
+    if seed is None:
+        yield
+        return
+    import jax
+    from ucoslam_tpu.slam import initializer
+
+    cls = initializer.MapInitializer
+    orig = cls.__init__
+
+    def seeded(self, *a, **kw):
+        orig(self, *a, **kw)
+        self._key = jax.random.PRNGKey(seed)
+
+    cls.__init__ = seeded
+    try:
+        yield
+    finally:
+        cls.__init__ = orig
+
+
+def run_one(name: str, frames: int, workdir: str, seed: int | None = None) -> dict:
     from ucoslam_tpu.apps import test_reloc, test_sequence
     from ucoslam_tpu.apps.compare_logs import evaluate
     from ucoslam_tpu.config import Params
@@ -100,7 +134,7 @@ def run_one(name: str, frames: int, workdir: str) -> dict:
         argv += ["--params", pyml]
     buf = io.StringIO()
     t0 = time.perf_counter()
-    with contextlib.redirect_stdout(buf):
+    with contextlib.redirect_stdout(buf), init_key(seed):
         rc = test_sequence.main(argv)
     run_s = time.perf_counter() - t0
     if rc != 0:
@@ -114,7 +148,10 @@ def run_one(name: str, frames: int, workdir: str) -> dict:
         rec[key] = None if ev is None else float(ev[0])
     rec.update(sequence=sc["seq"], rig=sc["rig"], layout=sc["layout"], argv=sc["switches"],
                write_s=write_s, harness_s=run_s)
-    if name == "mono":
+    if seed is not None:
+        rec["seed"] = seed
+        rec["pass2_frames"] = trajectory_frames(est)
+    if name == "mono" and seed is None:
         buf = io.StringIO()
         with contextlib.redirect_stdout(buf):
             test_reloc.main(["--map", os.path.join(out_dir, "map.slm"), "--dataset", tree, "--camera", cam_yml])
@@ -122,6 +159,13 @@ def run_one(name: str, frames: int, workdir: str) -> dict:
         rec["reloc"] = dict(rate=float(m.group(1)), ok=int(m.group(2)), frames=int(m.group(3)))
     print(f"[{name}] {json.dumps({k: v for k, v in rec.items() if k != 'sequence'})}", flush=True)
     return rec
+
+
+def trajectory_frames(path: str) -> list:
+    """The frame indices of a TUM trajectory the synthetic writers stamped
+    i / 30 (both packages' write_synthetic_tum)."""
+    with open(path) as f:
+        return [round(30.0 * float(line.split()[0])) for line in f if line.strip() and not line.startswith("#")]
 
 
 def merge(out_path: str, frames: int, results: dict) -> None:
@@ -144,8 +188,10 @@ def main(argv=None) -> int:
     ap.add_argument("--scenario", action="append", choices=(*SCENARIOS, "all"),
                     help="default: chip_smoke phase 13's trees (mono, rgbd, stereo)")
     ap.add_argument("--jobs", type=int, default=1, help="scenarios run at once, each in its own process")
-    ap.add_argument("--out", default=OUT)
+    ap.add_argument("--init-seeds", type=int, default=0, help="one run per init key (see above)")
+    ap.add_argument("--out", default=None)
     ap.add_argument("--part", help=argparse.SUPPRESS)  # a child's result file
+    ap.add_argument("--seed", type=int, default=None, help=argparse.SUPPRESS)  # a child's init key
     args = ap.parse_args(argv)
     names = args.scenario or list(PHASE13)
     if "all" in names:
@@ -153,35 +199,50 @@ def main(argv=None) -> int:
     if args.part:
         (name,) = names
         with tempfile.TemporaryDirectory() as d:
-            rec = run_one(name, args.frames, d)
+            rec = run_one(name, args.frames, d, args.seed)
         with open(args.part, "w") as f:
             json.dump(rec, f)
         return 0
+    seeds = [0x1717] + list(range(1, args.init_seeds)) if args.init_seeds else [None]
+    jobs = [(name, seed) for name in names for seed in seeds]
     results = {}
     if args.jobs <= 1:
         with tempfile.TemporaryDirectory() as d:
-            for name in names:
-                results[name] = run_one(name, args.frames, d)
+            for job in jobs:
+                results[job] = run_one(job[0], args.frames, d, job[1])
     else:
         with tempfile.TemporaryDirectory() as d:
-            pending, procs = list(names), {}
+            pending, procs = list(jobs), {}
             while pending or procs:
                 while pending and len(procs) < args.jobs:
-                    name = pending.pop(0)
-                    part = os.path.join(d, f"{name}.json")
+                    name, seed = job = pending.pop(0)
+                    part = os.path.join(d, f"{name}_{seed}.json")
                     cmd = [sys.executable, "-m", "tools.port.harness_reference", "--frames", str(args.frames),
                            "--scenario", name, "--part", part]
-                    procs[name] = (subprocess.Popen(cmd, cwd=REPO), part)
-                for name, (p, part) in list(procs.items()):
+                    if seed is not None:
+                        cmd += ["--seed", str(seed)]
+                    procs[job] = (subprocess.Popen(cmd, cwd=REPO), part)
+                for job, (p, part) in list(procs.items()):
                     if p.poll() is not None:
-                        del procs[name]
+                        del procs[job]
                         if p.returncode != 0:
-                            raise RuntimeError(f"{name} failed with exit code {p.returncode}")
+                            raise RuntimeError(f"{job} failed with exit code {p.returncode}")
                         with open(part) as f:
-                            results[name] = json.load(f)
+                            results[job] = json.load(f)
                 time.sleep(1.0)
-    merge(args.out, args.frames, results)
-    print(f"wrote {args.out}: {sorted(results)} at {args.frames} frames")
+    if not args.init_seeds:
+        out = args.out or OUT
+        merge(out, args.frames, {name: rec for (name, _), rec in results.items()})
+        print(f"wrote {out}: {sorted(name for name, _ in results)} at {args.frames} frames")
+        return 0
+    for name in names:
+        out = args.out or os.path.join(REPO, "data", "torch_port", f"{name}{args.frames}_harness_spread_jax.json")
+        runs = [results[(name, seed)] for seed in seeds]
+        with open(out, "w") as f:
+            json.dump(dict(scenario=name, frames=args.frames, seeds=seeds, runs=runs,
+                           note="JAX package, ucoslam_tpu.apps.test_sequence on CPU, one run per init key; "
+                                "tools/port/harness_reference.py --init-seeds"), f, indent=1)
+        print(f"wrote {out}: {name} at {args.frames} frames over {len(seeds)} init keys")
     return 0
 
 

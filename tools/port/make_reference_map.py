@@ -50,6 +50,15 @@ sweep of the checkpoint, and the same sweep with `resetTracker()` at
 MARKER_RESET_FRAME and the keypoints of MARKER_STRIP_FRAMES removed after
 extraction, which only the marker fallback can pose.
 
+`--marker-dictionary NAME` runs pass 1 of the `markers` scenario with its
+markers drawn as codewords of dictionary NAME by the port's renderer
+(`tools/port/marker_render.py`), the JAX package detecting them with
+`aruco_Dictionary` = NAME (cv2 for a dictionary without a native table),
+and writes `markers_<name>[F]_jax.json` (tracked frames, metric ATE, markers
+with a map pose, the init, the poses) for chip_smoke.py phase 15:
+
+    JAX_PLATFORMS=cpu python -m tools.port.make_reference_map --marker-dictionary TAG36h11
+
 `--stereo` and `--rgbd` run the `stereo` and `rgbd` parity scenarios: SEQUENCE
 seen by a rig with a 0.25 m baseline (DEPTH_CAMERA), through `processStereo`
 on the rendered pair or `processRGBD` on the render and its z-buffer in the TUM
@@ -406,6 +415,43 @@ def markers_run(cam: CameraParams, seq: SyntheticSequence, map_path: str) -> dic
                 slm_bytes=os.path.getsize(map_path), **sweeps)
 
 
+def marker_dictionary_run(name: str, frames: int, params: Params = MARKER_PARAMS) -> dict:
+    """Pass 1 of the `markers` scenario with its markers drawn as codewords of
+    dictionary `name` by the port's renderer (tools/port/marker_render.py:
+    the JAX package's renderer draws ARUCO_MIP_36h12 only), the JAX package
+    detecting them with `aruco_Dictionary` = name (cv2 for a dictionary
+    without a native table) -> the summary phase 15 of chip_smoke.py and
+    tests/test_torch_marker_slam_dict.py hold the port to."""
+    from tools.port.marker_render import dictionary_scene
+    from ucoslam_tpu_torch.geometry.camera import CameraParams as PortCamera
+
+    c = CAMERA
+    seq, ids, images, truth = dictionary_scene(name, dict(MARKER_SEQUENCE, n_frames=frames), cam=PortCamera.create(
+        c["fx"], c["fy"], c["cx"], c["cy"], width=c["width"], height=c["height"]))
+    params = params.replace(aruco_Dictionary=name)
+    slam = UcoSlam()
+    slam.setParams(None, params, CameraParams.create(c["fx"], c["fy"], c["cx"], c["cy"], width=c["width"],
+                                                     height=c["height"]))
+    fwd, kind = {}, None
+    for i, img in enumerate(images):
+        before = slam.map.n_keyframes
+        pose = slam.process(img, fseq=i)
+        k = init_kind(slam, before)
+        if k is not None:
+            kind = dict(kind=k, frame=i)
+        if pose is not None:
+            fwd[i] = np.asarray(pose, np.float32)
+    st = slam.map.state
+    mk = marker_errors(np.asarray(st.mk_id), np.asarray(st.mk_pose), np.asarray(st.mk_pose_valid), fwd, seq, truth)
+    return dict(dictionary=name, backend="native" if slam._extractor.marker_detector._native else "cv2",
+                sequence=dict(MARKER_SEQUENCE, n_frames=frames), ids={str(k): v for k, v in ids.items()},
+                params=dict(detectMarkers=True, aruco_markerSize=params.aruco_markerSize, aruco_Dictionary=name,
+                            maxKeyPointsPerFrame=params.maxKeyPointsPerFrame, maxMapPoints=params.maxMapPoints,
+                            maxKeyFrames=params.maxKeyFrames, maxDescDistance=params.maxDescDistance),
+                pass1=dict(tracked=len(fwd), **metric_summary(fwd, seq), **mk, init=kind,
+                           keyframes=slam.map.n_keyframes, points=slam.map.n_points, poses=poses_json(fwd)))
+
+
 def depth_run(kind: str, cam: CameraParams, seq: SyntheticSequence, map_path: str) -> dict:
     """The `--stereo` / `--rgbd` runs of the module docstring -> their summary."""
     slam = UcoSlam()
@@ -468,6 +514,8 @@ def main(argv=None) -> None:
     ap.add_argument("--frames", type=int, default=SEQUENCE["n_frames"])
     ap.add_argument("--init-seeds", type=int, default=0)
     ap.add_argument("--markers", action="store_true", help="the markers scenario (see above)")
+    ap.add_argument("--marker-dictionary", default=None, help="pass 1 of the markers scenario with this "
+                                                               "dictionary's markers (see above)")
     ap.add_argument("--stereo", action="store_true", help="the stereo scenario (see above)")
     ap.add_argument("--rgbd", action="store_true", help="the RGB-D scenario (see above)")
     ap.add_argument("--async-trials", type=int, default=0, help="pass 1 sequential and async (see above)")
@@ -499,6 +547,14 @@ def main(argv=None) -> None:
                           for k, v in out.items()}), flush=True)
         name = name.replace(kind, "mono")
     if args.stereo or args.rgbd:
+        return
+    if args.marker_dictionary:
+        out = {"camera": CAMERA, **marker_dictionary_run(args.marker_dictionary, args.frames)}
+        tag = args.marker_dictionary.lower() + ("" if args.frames == SEQUENCE["n_frames"] else str(args.frames))
+        with open(os.path.join(args.out_dir, f"markers_{tag}_jax.json"), "w") as f:
+            json.dump(out, f, indent=1)
+        print(json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "poses"} if isinstance(v, dict) else v)
+                          for k, v in out.items()}), flush=True)
         return
     if args.descriptor:
         out = {"sequence": sequence, "camera": CAMERA, **descriptor_run(args.descriptor, cam, seq)}

@@ -47,14 +47,30 @@ package's harness on the same tree from `data/torch_port/harness_jax.json`
 
     python3 tools/port/run_scenario.py --png --scenario loop --frames 150 [--out FILE]
 
+`--init-seeds N` (with `--png`) writes the tree once and runs the harness
+on it once for each of N seeds of the two-view init's draws (0x1717, the
+port's own, then 1, 2, ...; every `MapInitializer` the harness builds takes
+the seed), recording each run's passes, ATE, rollbacks and the frames pass
+2 tracked; `tools/port/slam_spread.py --compare` holds the runs against the
+JAX package's (`tools/port/harness_reference.py --init-seeds N`):
+
+    python3 tools/port/run_scenario.py --png --scenario loop --frames 150 --init-seeds 8 --out FILE
+
+`--keep-maps DIR` (with `--png`) keeps each run's map just before the
+harness's global BA and after it (`<scenario>_<seed>_pre_gba.slm`,
+`<scenario>_<seed>_map.slm`; seed None without `--init-seeds`), for the
+other package's pass 2 on the same map.
+
 Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -199,14 +215,61 @@ def run(name: str, vocabulary: str | None = None, frames: int | None = None) -> 
     )
 
 
-def run_png(name: str, frames: int, workdir: str) -> dict:
-    """The scenario's PNG tree through the port's two-pass harness."""
+@contextlib.contextmanager
+def init_seed(seed: int | None):
+    """Every MapInitializer built inside draws from default_rng(seed) (None:
+    the port's own 0x1717); the class is restored on exit."""
+    if seed is None:
+        yield
+        return
+    from ucoslam_tpu_torch.slam import initializer
+
+    cls = initializer.MapInitializer
+    orig = cls.__init__
+
+    def seeded(self, *a, **kw):
+        orig(self, *a, **kw)
+        self._rng = np.random.default_rng(seed)
+
+    cls.__init__ = seeded
+    try:
+        yield
+    finally:
+        cls.__init__ = orig
+
+
+@contextlib.contextmanager
+def keep_maps(keep: str | None, tag: str):
+    """With `keep`, the harness's map is also saved as keep/<tag>_pre_gba.slm
+    just before its globalOptimization (the map after it is the harness's
+    own map.slm, which run_png copies to keep/<tag>_map.slm)."""
+    if keep is None:
+        yield
+        return
+    orig = UcoSlam.globalOptimization
+
+    def saving(self, *a, **kw):
+        self.saveToFile(os.path.join(keep, f"{tag}_pre_gba.slm"))
+        return orig(self, *a, **kw)
+
+    UcoSlam.globalOptimization = saving
+    try:
+        yield
+    finally:
+        UcoSlam.globalOptimization = orig
+
+
+def run_png(name: str, frames: int, workdir: str, seed: int | None = None, tree=None, keep: str | None = None) -> dict:
+    """The scenario's PNG tree through the port's two-pass harness; `tree`:
+    (sequence, scenario) of a tree already written under workdir/name;
+    `keep`: a directory for the maps before and after the global BA."""
     from ucoslam_tpu_torch.apps import test_sequence
     from ucoslam_tpu_torch.apps.compare_logs import evaluate
 
-    root, run_dir = os.path.join(workdir, name), os.path.join(workdir, f"{name}_run")
+    root = os.path.join(workdir, name)
+    run_dir = os.path.join(workdir, f"{name}_run" if seed is None else f"{name}_run_{seed}")
     t0 = time.perf_counter()
-    seq, sc = chip_smoke.write_tree(name, frames, root)
+    seq, sc = tree or chip_smoke.write_tree(name, frames, root)
     write_s = time.perf_counter() - t0
     cam_yml = os.path.join(workdir, f"{name}_cam.yml")
     chip_smoke.write_camera_yml(cam_yml, seq.cam)
@@ -218,7 +281,11 @@ def run_png(name: str, frames: int, workdir: str) -> dict:
         argv += ["--params", pyml]
     chip_smoke.reset_counts()
     t0 = time.perf_counter()
-    chip_smoke.run_app(test_sequence.main, argv, os.path.join(workdir, f"{name}.log"))
+    tag = f"{name}_{seed}"
+    with init_seed(seed), keep_maps(keep, tag):
+        chip_smoke.run_app(test_sequence.main, argv, os.path.join(workdir, f"{name}.log"))
+    if keep is not None:
+        shutil.copy(os.path.join(run_dir, "map.slm"), os.path.join(keep, f"{tag}_map.slm"))
     torch.cuda.synchronize()
     harness_s = time.perf_counter() - t0
     launches = chip_smoke.counts()
@@ -229,6 +296,11 @@ def run_png(name: str, frames: int, workdir: str) -> dict:
     row.update(scenario=name, sequence=sc["seq"], switches=sc["switches"], metric_ate=None if ev is None else ev[0],
                parity_ate_is_metric=name in ("markers", "stereo", "rgbd"), write_s=write_s, harness_s=harness_s,
                launches=launches)
+    if seed is not None:
+        with open(os.path.join(run_dir, "trajectory.txt")) as f:
+            row.update(seed=seed, pass2_frames=[round(30.0 * float(line.split()[0])) for line in f
+                                                if line.strip() and not line.startswith("#")])
+        return row
     with open(chip_smoke.HARNESS_REF_PATH) as f:
         row["jax"] = json.load(f)["runs"].get(str(frames), {}).get(name)
     return row
@@ -242,7 +314,14 @@ def main(argv=None) -> None:
     ap.add_argument("--png", action="store_true",
                     help="write the scenario's PNG tree and run the port's apps.test_sequence on it")
     ap.add_argument("--frames", type=int, default=None, help="cut the scenario to this many frames")
+    ap.add_argument("--init-seeds", type=int, default=0, help="with --png: one harness run per init seed")
+    ap.add_argument("--keep-maps", default=None, help="with --png: keep each run's maps before and after the "
+                                                       "global BA in this directory")
     args = ap.parse_args(argv)
+    if (args.init_seeds or args.keep_maps) and not args.png:
+        ap.error("--init-seeds and --keep-maps need --png")
+    if args.keep_maps:
+        os.makedirs(args.keep_maps, exist_ok=True)
     if args.scenario == "loop" and not args.png:
         ap.error("the loop scenario's protocol needs the harness's recovery rollback: run it with --png")
     if not torch.cuda.is_available():
@@ -253,9 +332,17 @@ def main(argv=None) -> None:
     from ucoslam_tpu_torch.io.fbow import default_vocab_path
 
     frames = args.frames or SCENARIOS[args.scenario]["n_frames"]
-    if args.png:
+    if args.png and args.init_seeds:
         with tempfile.TemporaryDirectory() as d:
-            out = run_png(args.scenario, frames, d)
+            tree = chip_smoke.write_tree(args.scenario, frames, os.path.join(d, args.scenario))
+            runs = []
+            for seed in [0x1717] + list(range(1, args.init_seeds)):
+                runs.append(run_png(args.scenario, frames, d, seed, tree, args.keep_maps))
+                print(json.dumps({k: v for k, v in runs[-1].items() if k not in ("sequence", "stage_ms")}), flush=True)
+        out = dict(scenario=args.scenario, frames=frames, runs=runs)
+    elif args.png:
+        with tempfile.TemporaryDirectory() as d:
+            out = run_png(args.scenario, frames, d, keep=args.keep_maps)
     else:
         out = run(args.scenario, default_vocab_path() if args.voc == "auto" else args.voc, frames)
     out["device"] = torch.cuda.get_device_name(0)

@@ -24,6 +24,9 @@ JAX package's spread over its own draws (`--jax`, default
 `tools/port/make_reference_map.py --init-seeds N`): each side's ATE median
 and range, how many of the port/JAX pairs favour JAX, and the two-sided
 Mann-Whitney U test of the two ATE samples (scipy; U is the port's); for
+harness spreads (`run_scenario.py --png --init-seeds`, against
+`harness_reference.py --init-seeds`) the same for pass 2's ATE, both
+passes' tracked frames and the frames pass 2 loses against pass 1; for
 `--markers` summaries also the same by the init's kind, Fisher's exact test
 of the kinds' shares, and the markers' distance from the scene's.
 """
@@ -101,6 +104,14 @@ def compare(port_json: str, jax_json: str) -> dict:
                     pairs=len(a) * len(b), mann_whitney_u=float(test.statistic), p_two_sided=float(test.pvalue))
 
     out = spread("ate", port_runs, jax_runs)
+    if all("pass2_tracked" in r for r in port_runs + jax_runs):
+        # harness spreads (run_scenario.py --png / harness_reference.py
+        # --init-seeds): "ate" is pass 2's; also both passes' frames and
+        # what pass 2 loses against pass 1
+        for r in port_runs + jax_runs:
+            r["pass2_lost"] = r["pass1_tracked"] - r["pass2_tracked"]
+        for key in ("pass2_tracked", "pass1_tracked", "pass2_lost"):
+            out[key] = spread(key, port_runs, jax_runs)
     if all(r.get("init") for r in port_runs + jax_runs):
         kinds = sorted({r["init"]["kind"] for r in port_runs + jax_runs})
         by_kind = {k: ([r for r in port_runs if r["init"]["kind"] == k], [r for r in jax_runs if r["init"]["kind"] == k])

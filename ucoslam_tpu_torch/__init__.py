@@ -30,9 +30,11 @@ of the frontend, and datasets on disk with the command-line harness
 SURF on the device (`features/orb.py`, `features/descriptors.py`), AKAZE and
 BRISK through the cv2 grid extractor on the host (`features/grid_extractor.py`),
 with the vocabulary trainer (`features/vocab_trainer.py`) and the chessboard
-stereo calibration (`apps/stereo_calibrate.py`, cv2). Left (ROADMAP.md, Queue
-1): the port's benchmark and dictionaries without native tables (item 7),
-then multi-GPU (item 8).
+stereo calibration (`apps/stereo_calibrate.py`, cv2), every marker
+dictionary the reference resolves (cv2's predefined tables committed as
+`markers/predefined.py`, on the native detector), and bundle adjustment
+sharded over torch.distributed ranks (`parallel`; `apps/bench_scaling.py`).
+Left (ROADMAP.md, Queue 1): the port's benchmark.
 
 This package imports neither jax nor anything of `ucoslam_tpu`: `Params`,
 `Mode` and `TrackingState` are its own (`ucoslam_tpu_torch.config`).

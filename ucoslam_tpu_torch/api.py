@@ -35,8 +35,8 @@ from ucoslam_tpu_torch.slam.system import System
 def build_marker_detector_from_params(params: Params, device="cuda") -> ArucoDetector | None:
     """The marker detector the `aruco_*` parameters describe, or None when
     `detectMarkers` is off; shared by setParams and readFromFile. Raises
-    when the native detector cannot be built, and NotImplementedError for a
-    dictionary without a native table."""
+    when the native detector cannot be built, and ValueError for a
+    dictionary the reference cannot resolve either."""
     if not params.detectMarkers:
         return None
     return ArucoDetector(

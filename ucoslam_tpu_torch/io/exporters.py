@@ -115,7 +115,7 @@ def export_pmvs(world_map, cam, out_dir: str, images: dict | None = None) -> int
         if images is not None and int(fseqs[i]) in images:
             img = images[int(fseqs[i])]
             if cam.has_distortion():
-                img = undistort_image(img, cam)
+                img = undistort_image(img, cam, device=world_map.device)
             write_ppm(os.path.join(out_dir, "visualize", f"{i:08d}.ppm"), img)
 
     with open(os.path.join(out_dir, "vis.dat"), "w") as f:

@@ -4,10 +4,12 @@ Port of `ucoslam_tpu/markers/detector.py` with the native backend only:
 `ArucoDetector` finds the markers with the native C++ detector on the host
 (`markers.native`, built by the port with g++), then undistorts their
 corners and solves IPPE for all 16 slots at once on the device, and fetches
-the corners, both poses and both errors in one device->host transfer. The
-reference's cv2 backend and its keypoints-only fallback are not ported: a
-dictionary without a native table raises (ROADMAP.md, Queue 1 item 7), and
-a detector that cannot be built raises. `SyntheticMarkerDetector` is the
+the corners, both poses and both errors in one device->host transfer. Every
+dictionary the reference resolves runs on the native detector: the
+reference's cv2-backed ones with cv2's codewords and cv2's bit-error
+correction (`markers.dictionary`). The reference's keypoints-only fallback
+is not ported: an unknown dictionary raises, and a detector that cannot be
+built raises. `SyntheticMarkerDetector` is the
 oracle of the tests and the synthetic sequences: it projects known marker
 poses to corners.
 """
@@ -19,6 +21,7 @@ import torch
 
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import MAX_MARKERS_PER_FRAME, FrameMarkers, empty_markers, fetch_to_host
+from ucoslam_tpu_torch.markers.dictionary import resolve
 from ucoslam_tpu_torch.markers.ippe import ippe_square_poses, marker_object_points
 from ucoslam_tpu_torch.markers.native import detect_markers_native, load_library
 
@@ -40,25 +43,34 @@ def _markers_from(ids, corners: np.ndarray, und: torch.Tensor, size: float, cam:
 
 
 class ArucoDetector:
-    """The reference's marker detector, native backend.
+    """The reference's marker detector on the native backend, for every
+    dictionary the reference resolves (`markers.dictionary.resolve`; an
+    unknown name raises ValueError).
 
-    detection_mode DM_FAST / DM_VIDEO_FAST admits only larger quads and
-    skips the bit-error correction; min_marker_size (aruco_minMarkerSize) is
-    a fraction of the larger image side below which candidates are dropped.
-    The native detector refines corners one way only (the reference's
-    aruco_CornerRefimentMethod reaches its cv2 backend alone).
+    A code within the dictionary's correction of a codeword decodes to it:
+    one bit for the native tables, as the reference's native backend;
+    floor(0.6 x maxCorrectionBits) for a cv2 table, as the reference's cv2
+    backend (0 for ARUCO_ORIGINAL and every 4X4 table, 3 for 6X6_250 and
+    TAG36h11). detection_mode DM_FAST / DM_VIDEO_FAST admits only larger
+    quads, thresholds at one window and skips the correction;
+    min_marker_size (aruco_minMarkerSize) is a fraction of the larger image
+    side below which candidates are dropped.
+
+    The native detector refines corners one way only, to the crossing of
+    the edge lines: aruco_CornerRefimentMethod selects nothing in the port.
+    Where the reference detects with cv2 (CORNER_REFINE_SUBPIX by default,
+    CONTOUR for CORNER_LINES), the port's corners lie within 1.04 px of
+    cv2's and within 0.19 px of the projected marker on rendered frames of
+    every table (tests/test_torch_dictionaries.py holds 1.5 and 0.25 px).
+    A cv2 table is decoded in the native detector's cv2 mode
+    (csrc/host/aruco_detector.cpp: cv2's corner order, and two repairs of
+    quads the native code drops); the native tables as the reference's
+    native backend does, bit for bit.
     """
-
-    #: dictionaries with native codeword tables (native/ headers)
-    NATIVE_DICTS = ("ARUCO_MIP_36h12", "ARUCO_MIP_16h3")
 
     def __init__(self, dictionary: str = "ARUCO_MIP_36h12", marker_size: float = 1.0,
                  detection_mode: str = "DM_NORMAL", min_marker_size: float = 0.0, device="cuda"):
-        if dictionary not in self.NATIVE_DICTS:
-            raise NotImplementedError(
-                f"marker dictionary {dictionary} has no native table; the cv2 backend is not ported yet "
-                "(ROADMAP.md, Queue 1 item 7: dictionaries without native tables)"
-            )
+        self.spec = resolve(dictionary)
         self.dictionary = dictionary
         self.marker_size = float(marker_size)
         self.detection_mode = detection_mode
@@ -76,7 +88,7 @@ class ArucoDetector:
             # no bit-error correction
             min_perim, max_corr = max(min_perim, 60), -1
         else:
-            max_corr = 1
+            max_corr = self.spec.max_correction
         return detect_markers_native(gray, dictionary=self.dictionary, min_perimeter=min_perim,
                                      max_correction=max_corr)
 

@@ -25,7 +25,9 @@ Every per-camera reduction is a gather through the static
 camera->observation table and a sum, and the marker blocks are added
 through one-hot products, so the card sums in a fixed order and gives the
 same result on every run. `local_bundle_adjustment` solves a covisibility
-window, `global_bundle_adjustment` the whole map (the first keyframe fixed).
+window, `global_bundle_adjustment` the whole map (the first keyframe fixed);
+both go through `_solve_dispatch`, which shards the solve over a mesh of
+ranks when there is one (`set_ba_mesh`; parallel/).
 """
 
 from __future__ import annotations
@@ -211,16 +213,22 @@ def _planar_residual_jac(problem: BAProblem, mk_pose):
     return r, -J2, J2
 
 
-def _total_cost(problem: BAProblem, cam_pose, mk_pose, pt_pos, cam, active, robust: bool):
+def _identity(x):
+    return x
+
+
+def _total_cost(problem: BAProblem, cam_pose, mk_pose, pt_pos, cam, active, robust: bool, psum=_identity):
     """LM acceptance cost: keypoint edges (Huber in stage 0, quadratic
-    after), plus the quadratic marker and planar terms."""
+    after), plus the quadratic marker and planar terms. `psum` sums the
+    keypoint part over a point-sharded mesh; the marker terms are
+    replicated and added after it."""
     c2, _ = _chi2_of(problem, cam_pose, pt_pos, cam)
     if robust:
         delta2 = _delta2(problem)
         rho = torch.where(c2 <= delta2, c2, 2.0 * torch.sqrt(delta2 * c2.clamp(min=1e-12)) - delta2)
     else:
         rho = c2
-    cost = torch.where(active, rho, 0.0).sum()
+    cost = psum(torch.where(active, rho, 0.0).sum())
     if problem.mk_pose is not None:
         rm, _, _ = _marker_residual_jac(problem, cam_pose, mk_pose, cam)
         cost = cost + ((rm * rm).sum(-1) * problem.mobs_valid.to(torch.float32) * problem.mobs_w).sum()
@@ -274,7 +282,7 @@ def block_jacobi(D: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
     return torch.where(free[:, None, None], Minv, eye6)
 
 
-def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, use_cg: bool, cg_iters: int,
+def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, use_cg: bool, cg_iters: int, psum,
              cam_pose, mk_pose, pt_pos, lam, cost_prev):
     K = cam_pose.shape[0]
     M = 0 if problem.mk_pose is None else mk_pose.shape[0]
@@ -326,6 +334,9 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, use_cg: bool
         # the exact Schur diagonal blocks, for the block-Jacobi preconditioner
         # (a camera sees a point once, so only m1 == m2 terms land there)
         DK = cam_reduce(torch.einsum("oij,okj->oik", Y, A))  # (V, 6, 6)
+        # the keypoint system over the mesh, one collective (one more in
+        # each PCG iteration's matvec)
+        Hv, bv, b_corr, DK = psum((Hv, bv, b_corr, DK))
     else:
         # Schur complement as one matrix product of the camera-contracted tables
         Y_list = torch.einsum("pmij,pjk->pmik", A_list, Hpp_inv)  # (P, MO, 6, 3)
@@ -333,6 +344,9 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, use_cg: bool
         GY = torch.einsum("pmc,pmij->cipj", U, Y_list).reshape(V * 6, P * 3)
         GA = torch.einsum("pmc,pmij->cipj", U, A_list).reshape(V * 6, P * 3)
         S = -(GY @ GA.T).reshape(V, 6, V, 6).permute(0, 2, 1, 3)
+        # the keypoint system over the mesh: the one collective of the step
+        # but for the acceptance cost
+        Hv, bv, S, b_corr = psum((Hv, bv, S, b_corr))
 
     binary = []  # the binary marker blocks: (one-hot a, one-hot b, (Mo, 6, 6) blocks)
     if M:
@@ -367,7 +381,8 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, use_cg: bool
             through their one-hot products."""
             u = torch.einsum("pmij,pmi->pj", A_list, _pad_row(x)[cam_list])  # (P, 3)
             v = torch.einsum("pij,pj->pi", Hpp_inv, u)
-            y = torch.einsum("vij,vj->vi", HvD, x) - cam_reduce(torch.einsum("oij,oj->oi", A, v[problem.obs_pt]))
+            ykp = psum(cam_reduce(torch.einsum("oij,oj->oi", A, v[problem.obs_pt])))
+            y = torch.einsum("vij,vj->vi", HvD, x) - ykp
             for Ea, Eb, blk in binary:
                 y = y + Ea.T @ torch.einsum("oij,oj->oi", blk, Eb @ x) + Eb.T @ torch.einsum("oji,oj->oi", blk, Ea @ x)
             return torch.where(free[:, None], y, x)
@@ -397,7 +412,7 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, use_cg: bool
     new_cam = torch.where(free[:K, None, None], se3_exp(-delta_v[:K]) @ cam_pose, cam_pose)
     new_mk = torch.where(free[K:, None, None], se3_exp(-delta_v[K:]) @ mk_pose, mk_pose) if M else mk_pose
     new_pt = pt_pos - delta_p
-    new_cost = _total_cost(problem, new_cam, new_mk, new_pt, cam, active, robust)
+    new_cost = _total_cost(problem, new_cam, new_mk, new_pt, cam, active, robust, psum)
     improved = new_cost < cost_prev
     cam_pose = torch.where(improved, new_cam, cam_pose)
     mk_pose = torch.where(improved, new_mk, mk_pose) if M else mk_pose
@@ -408,10 +423,20 @@ def _lm_step(problem: BAProblem, cam, free, w_info, active, robust, use_cg: bool
 
 
 def _staged_lm(problem: BAProblem, cam: CameraParams, iters: int, stages: int, use_cg: bool = False,
-               cg_iters: int = 32):
+               cg_iters: int = 32, psum=_identity):
     """`stages` rounds of `iters` LM steps, the keypoint outliers demoted
     between them; the dense solve, or `cg_iters` PCG iterations a step.
-    -> (cam_pose, mk_pose, pt_pos, costs, obs_chi2, obs_bad)."""
+    -> (cam_pose, mk_pose, pt_pos, costs, obs_chi2, obs_bad).
+
+    One implementation for `ba_solve` (psum the identity) and
+    `parallel.sharded_ba.sharded_ba_solve`, where the problem is this
+    rank's shard (every observation of a point on the point's rank, local
+    indices) and `psum` the mesh's all_reduce. The collectives, as the
+    reference's: per LM step the keypoint system (Hv, bv, S or the Schur
+    diagonal, the rhs correction) and the acceptance cost, plus one in each
+    PCG iteration on the CG route; the stage's starting cost. Point blocks,
+    the back-substitution and the outlier demotion stay on their rank;
+    marker and planar edges are replicated and added after the reduction."""
     has_mk = problem.mk_pose is not None
     free = problem.cam_valid & ~problem.cam_fixed
     if has_mk:
@@ -423,12 +448,12 @@ def _staged_lm(problem: BAProblem, cam: CameraParams, iters: int, stages: int, u
     for stage in range(stages):
         robust = stage == 0
         w_info = active.to(torch.float32) / problem.obs_sigma2.clamp(min=1e-9)
-        cost = _total_cost(problem, cam_pose, mk_pose, pt_pos, cam, active, robust)
+        cost = _total_cost(problem, cam_pose, mk_pose, pt_pos, cam, active, robust, psum)
         lam = torch.tensor(1e-4, dtype=torch.float32, device=cam_pose.device)
         for _ in range(iters):
             cam_pose, mk_pose, pt_pos, lam, cost = _lm_step(
-                problem, cam, free, w_info, active, robust, use_cg, cg_iters, cam_pose, mk_pose, pt_pos, lam, cost
-            )
+                problem, cam, free, w_info, active, robust, use_cg, cg_iters, psum, cam_pose, mk_pose, pt_pos, lam,
+                cost)
             all_costs.append(cost)
         if stage < stages - 1:
             c2_s, q_s = _chi2_of(problem, cam_pose, pt_pos, cam)
@@ -750,16 +775,110 @@ def apply_ba_result(
     return n_bad
 
 
+# ----------------------------------------------------------------------
+# Distributed dispatch: the BA entry points below run the sharded solvers
+# (parallel/sharded_pm.py, parallel/sharded_ba.py: the same LM cores) when
+# a mesh of ranks is available and the problem is big enough to gain.
+# Under torch.distributed every rank runs the same sequential-mode program
+# on the same frames, so all ranks reach each BA together with the same
+# problem (parallel/distributed.py). Async mapping runs local BA on each
+# rank's worker thread at its own time, on maps that differ: `System`
+# refuses it where the dispatch may shard (`ba_mesh_spans_ranks`).
+# ----------------------------------------------------------------------
+
+#: below this many live points, sharding costs more than it saves
+DIST_BA_MIN_POINTS = 512
+
+_ba_mesh = "auto"  # "auto" | None (single device) | a parallel.mesh.Mesh (forced)
+
+
+def set_ba_mesh(mesh) -> None:
+    """Override the distributed-BA dispatch: a Mesh forces the sharded
+    solvers, None the single-device one, "auto" (the default) shards over
+    the world when it has more than one rank on CUDA devices and the
+    problem has DIST_BA_MIN_POINTS points or more. Set it before the
+    `System` is made: a System in async mode checks it then."""
+    global _ba_mesh
+    _ba_mesh = mesh
+
+
+def _auto_world() -> bool:
+    """"auto" shards only across CUDA ranks, as the reference's shards only
+    off the CPU; CPU worlds stay reachable through set_ba_mesh."""
+    import torch.distributed as dist
+
+    return (dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1
+            and torch.cuda.is_available())
+
+
+def ba_mesh_spans_ranks() -> bool:
+    """True when the dispatch may shard a bundle adjustment over more than
+    one rank: every rank must then reach each one together."""
+    if _ba_mesh is None:
+        return False
+    if _ba_mesh != "auto":
+        return _ba_mesh.size > 1
+    return _auto_world()
+
+
+def _resolve_ba_mesh(n_points: int, device):
+    if _ba_mesh is None:
+        return None
+    if _ba_mesh != "auto":
+        return _ba_mesh
+    if _auto_world() and n_points >= DIST_BA_MIN_POINTS:
+        from ucoslam_tpu_torch.parallel.distributed import global_mesh
+
+        return global_mesh(device=device)
+    return None
+
+
+def _solve_dispatch(problem: BAProblem, cam: CameraParams, n_iters: int, n_points: int,
+                    stages: int = 2) -> tuple[BAResult, BAProblem]:
+    """Solve on the mesh when there is one -> (result, the problem as
+    solved): the general sharded path reorders the observations, so the
+    caller pairs the result with the returned problem."""
+    mesh = _resolve_ba_mesh(n_points, problem.cam_pose.device)
+    if mesh is not None and mesh.size > 1:
+        # big marker-free problems: the communication-avoiding point-major
+        # solver (two collectives an LM step, none inside PCG)
+        if problem.cam_pose.shape[0] >= 128:
+            from ucoslam_tpu_torch.optim import schur_pm
+
+            pm = schur_pm.pm_problem_for(problem)
+            if pm is not None:
+                from ucoslam_tpu_torch.parallel.sharded_pm import shard_pm_problem, sharded_pm_solve
+
+                spm = shard_pm_problem(pm, mesh.size)
+                cam_pose, pt_pos, costs, c2, bad = sharded_pm_solve(spm, cam, mesh, iters=n_iters, stages=stages)
+                dev = problem.cam_pose.device
+                out = (cam_pose.to(dev), pt_pos[:problem.pt_pos.shape[0]].to(dev), costs.to(dev), c2.to(dev),
+                       bad.to(dev))
+                # per-observation outputs go back to the problem's own order
+                return _pm_result(problem, spm.pm, cam, out), problem
+        from ucoslam_tpu_torch.parallel.sharded_ba import shard_ba_problem, sharded_ba_solve
+
+        sharded = shard_ba_problem(problem, mesh.size)
+        res = sharded_ba_solve(sharded, cam, mesh, iters=n_iters, stages=stages)
+        dev = problem.cam_pose.device
+        res = BAResult(cam_pose=res.cam_pose.to(dev), pt_pos=res.pt_pos.to(dev), obs_chi2=res.obs_chi2.to(dev),
+                       obs_bad=res.obs_bad.to(dev), cost_history=res.cost_history.to(dev),
+                       mk_pose=None if res.mk_pose is None else res.mk_pose.to(dev))
+        return res, sharded
+    return ba_solve(problem, cam, iters=n_iters, stages=stages), problem
+
+
 def global_bundle_adjustment(world_map: Map, cam: CameraParams, n_iters: int = 50, fix_first: bool = True) -> int:
-    """Full-map BA (the reference's UcoSlam::globalOptimization). Returns the
+    """Full-map BA (the reference's UcoSlam::globalOptimization), sharded
+    over a mesh when the dispatch finds one (set_ba_mesh). Returns the
     number of bad associations removed."""
     if world_map.n_keyframes < 2:
         return 0
     problem, kf_slots, pt_slots, mk_slots = build_ba_problem(world_map, cam, fix_first=fix_first)
     if len(pt_slots) == 0:
         return 0
-    result = ba_solve(problem, cam, iters=n_iters, stages=2)
-    return apply_ba_result(world_map, result, kf_slots, pt_slots, problem, mk_slots=mk_slots)
+    result, solved = _solve_dispatch(problem, cam, n_iters, len(pt_slots))
+    return apply_ba_result(world_map, result, kf_slots, pt_slots, solved, mk_slots=mk_slots)
 
 
 def local_bundle_adjustment(
@@ -784,5 +903,5 @@ def local_bundle_adjustment(
     )
     if len(pt_slots) == 0:
         return 0
-    result = ba_solve(problem, cam, iters=n_iters, stages=2)
-    return apply_ba_result(world_map, result, kf_slots, pt_slots, problem, mk_slots=mk_slots)
+    result, solved = _solve_dispatch(problem, cam, n_iters, len(pt_slots))
+    return apply_ba_result(world_map, result, kf_slots, pt_slots, solved, mk_slots=mk_slots)

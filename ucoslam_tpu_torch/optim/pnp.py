@@ -18,6 +18,15 @@ negative sign into a wrong rotation (its depth flip negates R into a
 reflection and does not undo it), so about half of its hypotheses are lost.
 Here the null vector is first signed so that det(M) >= 0, which makes every
 hypothesis independent of the sign `eigh` returns.
+
+A second one: the DLT computes in float64 (the port's second deliberate
+float64 site, beside IPPE). The null vector of A^T A squares A's condition,
+and in float32 it is lost once the world points lie a few of their spreads
+from the world origin: with exact data, 71 of 256 hypotheses right at an
+offset of 5 units and none at (20, 10, 30), where float64 gets 250
+(tests/test_torch_pnp.py). Relocalization far from the map's origin then
+verifies no candidate, and the card's batched float32 eigensolver fares
+worse than the CPU's (ROADMAP.md Queue 3, the 150-frame `loop` run).
 """
 
 from __future__ import annotations
@@ -76,7 +85,10 @@ def draw_rows(rng: np.random.Generator, valid: np.ndarray, n_hypotheses: int, sa
 
 def _dlt_pose(X: torch.Tensor, uv_norm: torch.Tensor) -> torch.Tensor:
     """6+ point DLT for [R|t] from world points X (..., S, 3) and
-    normalized image coordinates (..., S, 2) -> poses (..., 4, 4)."""
+    normalized image coordinates (..., S, 2) -> poses (..., 4, 4), in X's
+    dtype, computed in float64 (module docstring)."""
+    dtype = X.dtype
+    X, uv_norm = X.to(torch.float64), uv_norm.to(torch.float64)
     s = X.shape[-2]
     Xh = torch.cat([X, torch.ones_like(X[..., :1])], -1)  # (..., S, 4)
     zeros = torch.zeros_like(Xh)
@@ -105,7 +117,7 @@ def _dlt_pose(X: torch.Tensor, uv_norm: torch.Tensor) -> torch.Tensor:
     t = torch.where(flip[..., 0], -t, t)
     top = torch.cat([R, t[..., None]], -1)
     bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=X.dtype, device=X.device).expand(top.shape[:-2] + (1, 4))
-    return torch.cat([top, bottom], -2)
+    return torch.cat([top, bottom], -2).to(dtype)
 
 
 def pnp_ransac(

@@ -55,9 +55,17 @@ def _edge_jacobians(Si, Sj, meas):
     return r[0], J[..., :7], J[..., 7:]
 
 
-def pose_graph_solve(problem: PoseGraphProblem, iters: int = 20, fix_scale: bool = False) -> torch.Tensor:
+def _identity(x):
+    return x
+
+
+def pose_graph_solve(problem: PoseGraphProblem, iters: int = 20, fix_scale: bool = False,
+                     psum=_identity) -> torch.Tensor:
     """Levenberg-Marquardt on the Sim3 pose graph -> poses (K, 4, 4). Every
-    accept/reject decision stays on the device."""
+    accept/reject decision stays on the device. `psum` sums over an
+    edge-sharded mesh (`parallel/sharded_posegraph.py`, where `problem`
+    holds this rank's edges): two collectives an iteration, the system with
+    its cost, then the candidate's cost."""
     poses = problem.poses.to(torch.float32)
     dev = poses.device
     K, E = poses.shape[0], problem.edge_i.shape[0]
@@ -87,6 +95,7 @@ def pose_graph_solve(problem: PoseGraphProblem, iters: int = 20, fix_scale: bool
         wr = w.repeat_interleave(7)
         H = (J.T * wr) @ J
         b = (J.T * wr) @ r.reshape(-1)
+        H, b, cur_cost = psum((H, b, (w * (r * r).sum(-1)).sum()))
         keep = mflat[:, None] & mflat[None, :]
         H = torch.where(keep, H, 0.0)
         damp = torch.where(mflat, 1e-6 + lam * torch.diagonal(H).clamp(min=1e-8), 1.0)
@@ -94,9 +103,8 @@ def pose_graph_solve(problem: PoseGraphProblem, iters: int = 20, fix_scale: bool
         delta = torch.linalg.solve(H + torch.diag(damp), b).reshape(K, 7)
         delta = torch.where(mask, delta, 0.0)
         cand = torch.where(free[:, None, None], sim3_exp(-delta) @ poses, poses)
-        cur_cost = (w * (r * r).sum(-1)).sum()
         r_new = residuals(cand)
-        new_cost = (w * (r_new * r_new).sum(-1)).sum()
+        new_cost = psum((w * (r_new * r_new).sum(-1)).sum())
         accept = new_cost < cur_cost
         poses = torch.where(accept, cand, poses)
         lam = torch.where(accept, lam * 0.5, lam * 4.0).clamp(1e-8, 1e6)

@@ -25,7 +25,10 @@ device until the caller fetches the result. The tables keep the reference's
 power-of-two widths (`bucket`), so they equal the reference's exactly.
 Marker edges are not supported: `build_pm_problem` returns None for a
 problem with marker vertices, and `ba_solve` takes its general path.
-`psum` (identity) is the reference's hook for a sharded solver.
+`psum` (identity) is the reference's hook for a sharded solver
+(`parallel/sharded_pm.py`): one collective a linearization (the packed
+camera blocks and the S blocks), two an LM step (the gradients, the
+acceptance cost), one a stage (its starting cost), none inside PCG.
 """
 
 from __future__ import annotations
@@ -321,16 +324,18 @@ def pm_staged_lm(pm: PMProblem, cam: CameraParams, iters: int = 20, stages: int 
         # Hv and the exact Schur diagonal DK in one packed reduction
         Hc_o = torch.einsum("pmij,pmik,pm->pmjk", Jc, Jc, w).reshape(P, MO, 36)
         DK_o = torch.einsum("pmij,pmkj->pmik", Y, A).reshape(P, MO, 36)
-        packed = psum(cam_reduce(torch.cat([Hc_o, DK_o], -1)))  # (V, 72)
-        Hv = packed[:, :36].reshape(V, 6, 6)
-        DK = packed[:, 36:].reshape(V, 6, 6)
         # the off-diagonal blocks: flat-row gathers through the pair tables
         t1 = torch.where(pm.pair_m1 >= 0, pm.pair_m1, P * MO)
         t2 = torch.where(pm.pair_m2 >= 0, pm.pair_m2, P * MO)
         NPn, CP = t1.shape
         Yg = _pad_row(Y.reshape(P * MO, 18))[t1].reshape(NPn, CP, 6, 3)
         Ag = _pad_row(A.reshape(P * MO, 18))[t2].reshape(NPn, CP, 6, 3)
-        S_blocks = psum(torch.einsum("bcij,bckj->bik", Yg, Ag))  # (NP, 6, 6)
+        # Hv and the exact Schur diagonal DK packed, and the S blocks: the
+        # linearization's one collective on a mesh
+        packed, S_blocks = psum((cam_reduce(torch.cat([Hc_o, DK_o], -1)),  # (V, 72)
+                                 torch.einsum("bcij,bckj->bik", Yg, Ag)))  # (NP, 6, 6)
+        Hv = packed[:, :36].reshape(V, 6, 6)
+        DK = packed[:, 36:].reshape(V, 6, 6)
         return Jc, Jp, w, A, Hpp_inv, Y, Hv, DK, S_blocks
 
     def inner_step(w_info, obs_active, robust, frozen, cam_pose, pt_pos, lam, cost_prev):

@@ -35,6 +35,7 @@ from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import Frame, fetch_to_host
 from ucoslam_tpu_torch.mapping.kfdatabase import KeyFrameDataBase
 from ucoslam_tpu_torch.mapping.map import Map
+from ucoslam_tpu_torch.optim import ba
 from ucoslam_tpu_torch.slam.initializer import MapInitializer
 from ucoslam_tpu_torch.slam.mapmanager import MapManager
 from ucoslam_tpu_torch.slam.markermap import best_pose_from_valid_markers, record_marker_observations, resolve_marker_slots
@@ -80,6 +81,12 @@ class System:
         self.n_marker_poses = 0  # lost frames the markers gave a pose to
         self.stats_log = []
         if not params.runSequential:
+            if ba.ba_mesh_spans_ranks():
+                raise ValueError(
+                    "runSequential=False with bundle adjustment sharded over the ranks: each rank's mapping "
+                    "worker would reach the collectives at its own time, on its own map; run every rank "
+                    "sequentially (runSequential=True), or keep each rank's solves on its device "
+                    "(optim.ba.set_ba_mesh(None))")
             self.manager.start_async(self.map)
 
     def _add_to_kfdb(self, slots) -> None:

@@ -1306,16 +1306,24 @@ def recovery_ref(name: str) -> dict:
         return json.load(f)
 
 
-def counts() -> dict:
-    from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
+#: the tracer's launch counters at the last reset_counts()
+_COUNTS_AT_RESET: dict = {}
 
-    return {"B1": match_kernel.launches, "B2": lm_kernel.launches, "B2_batched": lm_kernel.batched_launches}
+
+def counts() -> dict:
+    """The kernels' launches since the last reset_counts(): the tracer's
+    counters, which count while tracing is on (from main()'s start)."""
+    from ucoslam_tpu_torch.utils.timers import timers
+
+    now = timers.counters()
+    return {k: now.get(k, 0) - _COUNTS_AT_RESET.get(k, 0) for k in ("B1", "B2", "B2_batched")}
 
 
 def reset_counts() -> None:
-    from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
+    from ucoslam_tpu_torch.utils.timers import timers
 
-    match_kernel.launches = lm_kernel.launches = lm_kernel.batched_launches = 0
+    _COUNTS_AT_RESET.clear()
+    _COUNTS_AT_RESET.update(timers.counters())
 
 
 def reloc_sweep(scene, brute_force: bool, map_path: str = MAP_PATH, jax_ref: dict | None = None,
@@ -3205,6 +3213,9 @@ def main(argv=None) -> int:
         print("chip_smoke: ucoslam_tpu_torch was imported from outside the checkout", file=sys.stderr)
         return 2
 
+    from ucoslam_tpu_torch.utils.timers import timers
+
+    timers.start()  # the launch table reads the tracer's counters
     t_start = time.perf_counter()
     seconds = {}
 

@@ -45,7 +45,7 @@ from ucoslam_tpu.io.synthetic import SyntheticSequence as RefSequence
 from ucoslam_tpu_torch.apps import analyze_logs, compare_logs, map_export, run_slam, stereo_rectify, test_reloc
 from ucoslam_tpu_torch.apps import test_sequence
 from ucoslam_tpu_torch.io.serialize import load_map
-from ucoslam_tpu_torch.utils.timers import StageTimers
+from ucoslam_tpu_torch.utils.timers import STAGES, StageTimers
 
 torch.set_num_threads(2)
 
@@ -261,14 +261,16 @@ def test_pmvs_images_undistorted_as_cv2(tmp_path):
 
 
 def test_stage_timers_report_while_another_thread_adds_stages():
-    """The async mapping worker enters stages (`localBA`, `loop`) while the
-    tracker's thread prints its `|@#` line: no report sees the registry
-    while a stage is inserted."""
+    """The async mapping worker ends spans (`ba.local_ba`, `mapping.loop`)
+    while the tracker's thread prints its `|@#` line: no report reads the
+    spans while one is appended, and none is lost."""
     reg = StageTimers()
+    reg.start()
+    names = list(STAGES.values())
 
     def worker():
         for i in range(20000):
-            with reg.stage(f"stage{i}"):
+            with reg.span(names[i % len(names)]):
                 pass
 
     t = threading.Thread(target=worker)
@@ -280,4 +282,5 @@ def test_stage_timers_report_while_another_thread_adds_stages():
             reports += 1
     finally:
         t.join()
-    assert reports > 0 and len(reg.averages()) == 20000
+    assert reports > 0 and set(reg.averages()) == set(STAGES)
+    assert len(reg.drain()) == 20000

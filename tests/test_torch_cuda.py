@@ -13,6 +13,7 @@ import torch
 import chip_smoke
 from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
 from ucoslam_tpu_torch.slam.system import disable_tf32
+from ucoslam_tpu_torch.utils.timers import N_MARKS, DeviceTrace, attribute, now_ns, timers, tracing
 
 torch.set_num_threads(2)
 
@@ -28,9 +29,10 @@ def card():
 
 
 def _assert_b1_equal(args):
-    before = match_kernel.launches
-    got = match_kernel.project_match(*args)
-    assert match_kernel.launches == before + 1
+    with tracing():
+        before = timers.counters().get("B1", 0)
+        got = match_kernel.project_match(*args)
+        assert timers.counters().get("B1", 0) == before + 1
     want = match_kernel.project_match_plain(*args)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
@@ -158,9 +160,11 @@ def test_lm_kernel_rejects_too_many_rows(card):
 def test_lm_kernel_batched_equals_plain(card, C, B):
     args = chip_smoke.b2_batch_inputs(card, C, B)
     cam = (500.0, 500.0, 320.0, 240.0)
-    before = (lm_kernel.launches, lm_kernel.batched_launches)
-    pose_k, inl_k = lm_kernel.motion_only_lm_fused_batched(*args, *cam, iters=10, rounds=2)
-    assert (lm_kernel.launches, lm_kernel.batched_launches) == (before[0] + 1, before[1] + 1)
+    with tracing():
+        before = timers.counters()
+        pose_k, inl_k = lm_kernel.motion_only_lm_fused_batched(*args, *cam, iters=10, rounds=2)
+        after = timers.counters()
+    assert [after.get(k, 0) - before.get(k, 0) for k in ("B2", "B2_batched")] == [1, 1]
     pose_p, inl_p = lm_kernel.motion_only_lm_plain_batched(*args, *cam, iters=10, rounds=2)
     assert float((pose_k - pose_p).abs().max()) < 1e-4
     assert torch.equal(inl_k, inl_p)
@@ -601,3 +605,61 @@ def test_sharded_pm_world_2_gloo_on_one_card(card):
                             (single[0].cpu().numpy(), single[1].cpu().numpy()), arrays)
     assert gap["reprojection_p99"] < 0.05 and gap["point_p99"] < 0.05 and gap["rotation"] < 2e-3, gap
     assert np.array_equal(got[0]["cam_pose"], got[1]["cam_pose"])
+
+
+def _busy(ns: int) -> None:
+    t = now_ns()
+    while now_ns() - t < ns:
+        pass
+
+
+def test_device_trace_puts_each_launch_in_its_span(card):
+    """1000 spans, each a 100 us host busy-wait, one spin-kernel launch and
+    another 100 us: on the trace's clock, moved by the marker launches, the
+    runtime call of every launch lands in its own span, and the marks bound
+    the clock's error under 50 us."""
+    torch.cuda._sleep(1)
+    torch.cuda.synchronize()
+    dt = DeviceTrace()
+    with tracing():
+        timers.drain()
+        dt.start()
+        for _ in range(1000):
+            with timers.span("marker"):
+                _busy(100_000)
+                torch.cuda._sleep(1)
+                _busy(100_000)
+        dev = dt.stop()
+        spans = timers.drain()
+    assert dev.clock_error_ns < 50_000, dev.clock_error_ns
+    stats = attribute(spans, dev)
+    assert len(spans) == 1000
+    assert [stats.get(s.id, {}).get("launches") for s in spans] == [1] * 1000
+    assert stats[0]["launches"] == 2 * N_MARKS  # the marks alone lie outside every span
+
+
+def test_launch_counters_equal_calls(card):
+    """B1, B2 and batched B2 launches count in the tracer's counters, each in
+    the innermost open span, only while tracing is on."""
+    b1 = chip_smoke.b1_inputs(card, P=1000, N=700, seed=1)
+    kw = chip_smoke.b2_inputs(card, B=200, seed=2)
+    b2 = [kw.pop(k) for k in ("pose_init", "pts3d", "uv", "sigma2", "valid")]
+    cam = (500.0, 500.0, 320.0, 240.0)
+    batch = chip_smoke.b2_batch_inputs(card, 3, 200)
+    before = timers.counters()
+    match_kernel.project_match(*b1)  # tracing off: not counted
+    with tracing():
+        timers.drain()
+        with timers.span("outer"):
+            for _ in range(3):
+                match_kernel.project_match(*b1)
+            with timers.span("inner"):
+                for _ in range(2):
+                    lm_kernel.motion_only_lm_fused(*b2, *cam, **kw)
+                lm_kernel.motion_only_lm_fused_batched(*batch, *cam, iters=10, rounds=2)
+        spans = {s.name: s for s in timers.drain()}
+    after = timers.counters()
+    assert {k: after.get(k, 0) - before.get(k, 0) for k in ("B1", "B2", "B2_batched")} == \
+        {"B1": 3, "B2": 3, "B2_batched": 1}
+    assert spans["outer"].counts == {"B1": 3}
+    assert spans["inner"].counts == {"B2": 3, "B2_batched": 1}

@@ -13,6 +13,7 @@ from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.geometry.se3 import se3_exp
 from ucoslam_tpu_torch.ops.cuda import lm_kernel
 from ucoslam_tpu_torch.optim.pnp import motion_only_lm
+from ucoslam_tpu_torch.utils.timers import timers, tracing
 
 torch.set_num_threads(2)
 
@@ -74,12 +75,13 @@ def test_plain_matches_pallas_stereo():
 def test_motion_only_lm_dispatch_on_cpu():
     kw, _, _ = _scene(seed=3)
     t = {k: torch.from_numpy(v) for k, v in kw.items()}
-    before = lm_kernel.launches
-    res = motion_only_lm(
-        t["pose_init"], t["pts3d"], t["uv"], t["sigma2"], t["valid"],
-        CameraParams.create(FX, FY, CX, CY),
-    )
-    assert lm_kernel.launches == before
+    with tracing():
+        before = timers.counters()
+        res = motion_only_lm(
+            t["pose_init"], t["pts3d"], t["uv"], t["sigma2"], t["valid"],
+            CameraParams.create(FX, FY, CX, CY),
+        )
+        assert timers.counters() == before
     pose, inl = lm_kernel.motion_only_lm_plain(
         t["pose_init"], t["pts3d"], t["uv"], t["sigma2"], t["valid"], FX, FY, CX, CY
     )

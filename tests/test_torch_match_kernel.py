@@ -15,6 +15,7 @@ from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.mapping.frame import frame_from_numpy
 from ucoslam_tpu_torch.matching.projection import match_points_to_frame
 from ucoslam_tpu_torch.ops.cuda import match_kernel
+from ucoslam_tpu_torch.utils.timers import timers, tracing
 
 torch.set_num_threads(2)
 
@@ -63,10 +64,11 @@ def test_plain_matches_pallas_interpret(P, N, seed):
 
 def test_wrapper_on_cpu_runs_plain_and_counts_nothing():
     args = _torch(make_inputs(256, 512, 2))
-    before = match_kernel.launches
-    got = match_kernel.project_match(*args)
+    with tracing():
+        before = timers.counters()
+        got = match_kernel.project_match(*args)
+        assert timers.counters() == before
     want = match_kernel.project_match_plain(*args)
-    assert match_kernel.launches == before
     for g, w in zip(got, want):
         assert torch.equal(g, w)
 

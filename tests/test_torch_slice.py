@@ -19,6 +19,7 @@ from ucoslam_tpu_torch.config import Mode
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.geometry.horn import ate_rmse
 from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
+from ucoslam_tpu_torch.utils.timers import timers, tracing
 
 torch.set_num_threads(2)
 
@@ -42,20 +43,24 @@ def runs(tmp_path_factory):
     loaded_signature = slam.map.signature()
     slam.setMode(Mode.LOCALIZATION)
     poses = {}
-    for i in reversed(range(seq.n_frames)):
-        pose = slam.process(seq.render(i), fseq=i)
-        if pose is not None:
-            poses[i] = pose
-    return summary, ref_poses, poses, seq, loaded_signature, slam
+    with tracing():
+        timers.drain()
+        before = timers.counters()
+        for i in reversed(range(seq.n_frames)):
+            pose = slam.process(seq.render(i), fseq=i)
+            if pose is not None:
+                poses[i] = pose
+        counted = (timers.counters() == before, timers.drain())
+    return summary, ref_poses, poses, seq, loaded_signature, slam, counted
 
 
 def test_loaded_signature_equals_saved(runs):
-    summary, _, _, _, loaded_signature, _ = runs
+    summary, _, _, _, loaded_signature, _, _ = runs
     assert loaded_signature == summary["map_signature"]
 
 
 def test_reverse_sweep_gates(runs):
-    summary, ref_poses, poses, seq, _, _ = runs
+    summary, ref_poses, poses, seq, _, _, _ = runs
     assert summary["pass2_tracked"] >= 0.9 * seq.n_frames, summary
     assert len(poses) >= summary["pass2_tracked"]
     idx = sorted(poses)
@@ -72,14 +77,14 @@ def test_reverse_sweep_gates(runs):
 
 
 def test_session_state_after_sweep(runs):
-    _, ref_poses, poses, seq, _, slam = runs
+    _, ref_poses, poses, seq, _, slam, (none_counted, spans) = runs
     np.testing.assert_array_equal(slam.getCurrentPose_f2g(), poses[0])
     assert len(slam.getSignatureStr()) == 16
     st = slam.map.state
     # every tracked frame bumped the visible counters of the points it searched
     assert int(st.pt_n_visible.sum()) > 0
     # the port ran on the CPU: the kernels' plain versions, no launches
-    from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
-
-    assert match_kernel.launches == 0 and lm_kernel.launches == 0
+    # counted in a sweep that traced a root span a frame
+    assert sum(s.name == "slam.process" for s in spans) == seq.n_frames
+    assert none_counted
     assert slam._system.tracker.n_attempts >= seq.n_frames

@@ -129,7 +129,7 @@ class Probe:
                 Arena.of_mask(m) for m in view.h("pt_active", "kf_active", "mk_active")]
             return view
 
-        def p_enqueue(self, frame, **host):
+        def p_enqueue(self, frame, trace_frame=None, **host):
             ids = host.get("host_ids")
             entry = (probe.frame, None if ids is None else np.array(ids), probe.snap_gen, probe.consumed)
             if "skip" in probe.flags and self.busy():
@@ -140,12 +140,12 @@ class Probe:
                     q = self._queue.queue
                     at = [i for i, (kind, _) in enumerate(q) if kind == "kf"]
                     if at:
-                        q[at[-1]] = ("kf", (frame, host))
+                        q[at[-1]] = ("kf", (frame, trace_frame, host))
                         probe.fifo[-1] = entry
                         probe.replaced += 1
                         return True
             probe.fifo.append(entry)
-            ok = enqueue(self, frame, **host)
+            ok = enqueue(self, frame, trace_frame, **host)
             if not ok:
                 probe.fifo.pop()
             return ok

@@ -30,6 +30,7 @@ from ucoslam_tpu_torch.mapping.map import Map
 from ucoslam_tpu_torch.markers.detector import ArucoDetector
 from ucoslam_tpu_torch.optim.ba import global_bundle_adjustment
 from ucoslam_tpu_torch.slam.system import System
+from ucoslam_tpu_torch.utils.timers import timers
 
 
 def build_marker_detector_from_params(params: Params, device="cuda") -> ArucoDetector | None:
@@ -53,6 +54,7 @@ class UcoSlam:
         self._extractor: FrameExtractor | None = None
         self._params = Params()
         self._map: Map | None = None
+        self._session = timers.new_session()  # the first half of this instance's frame ids in spans
 
     def setParams(self, world_map: Map | None, params: Params, cam: CameraParams,
                   vocabulary: str | None = None, marker_detector=None) -> None:
@@ -80,20 +82,24 @@ class UcoSlam:
 
     def process(self, img: np.ndarray, fseq: int = 0) -> np.ndarray | None:
         """Monocular frame -> pose_f2g (4x4) or None when lost."""
-        return self._system.process_frame(self._extractor.process(img, fseq))
+        with timers.span("slam.process", self._session, fseq):
+            return self._system.process_frame(self._extractor.process(img, fseq))
 
     def processStereo(self, left: np.ndarray, right: np.ndarray, fseq: int = 0) -> np.ndarray | None:
         """Rectified stereo pair (the camera's `bl` > 0) -> pose_f2g or None."""
-        return self._system.process_frame(self._extractor.process_stereo(left, right, fseq))
+        with timers.span("slam.process", self._session, fseq):
+            return self._system.process_frame(self._extractor.process_stereo(left, right, fseq))
 
     def processRGBD(self, img: np.ndarray, depth: np.ndarray, fseq: int = 0) -> np.ndarray | None:
         """Image and its registered raw depth image (metres = raw x the
         camera's rgb_depthscale) -> pose_f2g or None."""
-        return self._system.process_frame(self._extractor.process_rgbd(img, depth, fseq))
+        with timers.span("slam.process", self._session, fseq):
+            return self._system.process_frame(self._extractor.process_rgbd(img, depth, fseq))
 
     def process_frame(self, frame: Frame) -> np.ndarray | None:
         """Feed a pre-extracted Frame (the oracle path of the tests)."""
-        return self._system.process_frame(frame)
+        with timers.span("slam.process", self._session, frame.fseq):
+            return self._system.process_frame(frame)
 
     def setMode(self, mode: Mode) -> None:
         self._system.set_mode(mode)

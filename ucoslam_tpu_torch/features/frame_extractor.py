@@ -148,16 +148,22 @@ class FrameExtractor:
     def _base_frame(self, img: np.ndarray, fseq: int) -> tuple[Frame, torch.Tensor]:
         """(H, W) gray or (H, W, 3) BGR image -> (Frame, gray image), both on
         the device."""
-        with timers.stage("extract"):
-            return self._base_frame_impl(img, fseq)
+        return self._base_frame_impl(img, fseq)
 
     def _base_frame_impl(self, img: np.ndarray, fseq: int) -> tuple[Frame, torch.Tensor]:
-        cap = self.params.maxKeyPointsPerFrame
         adjust = self.params.autoAdjustKpSensitivity and isinstance(self.orb, ORBExtractor)
         if adjust:
             self._adjust_sensitivity()
-        gray = self._gray(img)
+        with timers.span("frontend.upload"):
+            gray = self._gray(img)
         kps = self.detect(gray)
+        with timers.span("frontend.pack"):
+            return self._pack(img, fseq, kps, adjust), gray
+
+    def _pack(self, img: np.ndarray, fseq: int, kps, adjust: bool) -> Frame:
+        """The detector's keypoints padded into a Frame, undistorted, with
+        the image's markers."""
+        cap = self.params.maxKeyPointsPerFrame
         if adjust:
             self._keep_fill(kps.valid)
         und = self.cam.undistort_points(kps.xy) if self.cam.has_distortion() else kps.xy
@@ -184,35 +190,41 @@ class FrameExtractor:
                 quads = torch.from_numpy(f.markers.corners).to(self.device)
                 valid = torch.from_numpy(f.markers.valid).to(self.device)
                 f = f.replace(valid=f.valid & ~points_in_quads(f.xy, quads, valid))
-        return f, gray
+        return f
 
     def process(self, img: np.ndarray, fseq: int = 0) -> Frame:
         """(H, W) gray or (H, W, 3) BGR image -> Frame on the device."""
-        return self._base_frame(img, fseq)[0]
+        with timers.span("frontend.extract"):
+            return self._base_frame(img, fseq)[0]
 
     def process_rgbd(self, img: np.ndarray, depth: np.ndarray, fseq: int = 0) -> Frame:
         """Image and its registered (H, W) raw depth image (metres = raw x
         rgb_depthscale) -> Frame with each keypoint's depth, sampled at its
         distorted pixel; 0 where the keypoint is invalid or the depth is not
         positive."""
-        f, _ = self._base_frame(img, fseq)
-        raw = torch.from_numpy(np.ascontiguousarray(depth, np.float32)).to(self.device)
-        d = bilinear_sample(raw, f.xy, mode="nearest") * float(np.float32(self.cam.rgb_depthscale))
-        return f.replace(depth=torch.where(f.valid & (d > 0), d, 0.0))
+        with timers.span("frontend.extract"):
+            f, _ = self._base_frame(img, fseq)
+            with timers.span("frontend.pack"):
+                raw = torch.from_numpy(np.ascontiguousarray(depth, np.float32)).to(self.device)
+                d = bilinear_sample(raw, f.xy, mode="nearest") * float(np.float32(self.cam.rgb_depthscale))
+                return f.replace(depth=torch.where(f.valid & (d > 0), d, 0.0))
 
     def process_stereo(self, left: np.ndarray, right: np.ndarray, fseq: int = 0) -> Frame:
         """Rectified pair -> Frame of the left image with each keypoint's
         depth from its row match in the right image (`stereo_depth`)."""
-        f, gray_l = self._base_frame(left, fseq)
-        gray_r = self._gray(right)
-        kr = self.orb.detect_and_compute(gray_r)  # full resolution, as the reference
-        cam = self.cam
-        # z >= baseline <=> disparity <= bf / bl (= fx); fx when bl == 0,
-        # where bf == 0 gives every keypoint depth 0, as in the reference
-        max_disp = float(np.float32(cam.bf) / np.float32(cam.bl)) if cam.bl > 0 else cam.fx
-        depth = stereo_depth(f, gray_l, gray_r, kr.xy, kr.desc, kr.octave, kr.valid, cam.bf, max_disp,
-                             float(np.float32(self.params.maxDescDistance)))
-        return f.replace(depth=depth)
+        with timers.span("frontend.extract"):
+            f, gray_l = self._base_frame(left, fseq)
+            with timers.span("frontend.upload"):
+                gray_r = self._gray(right)
+            kr = self.orb.detect_and_compute(gray_r)  # full resolution, as the reference
+            cam = self.cam
+            # z >= baseline <=> disparity <= bf / bl (= fx); fx when bl == 0,
+            # where bf == 0 gives every keypoint depth 0, as in the reference
+            max_disp = float(np.float32(cam.bf) / np.float32(cam.bl)) if cam.bl > 0 else cam.fx
+            with timers.span("frontend.pack"):
+                depth = stereo_depth(f, gray_l, gray_r, kr.xy, kr.desc, kr.octave, kr.valid, cam.bf, max_disp,
+                                     float(np.float32(self.params.maxDescDistance)))
+                return f.replace(depth=depth)
 
 
 #: stereo_depth's SAD patch half-width and its search half-range along the row (px)

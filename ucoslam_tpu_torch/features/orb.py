@@ -31,6 +31,7 @@ import torch
 from ucoslam_tpu_torch.features import descriptors
 from ucoslam_tpu_torch.ops.fast import fast_score_map, nms3x3, topk_grid
 from ucoslam_tpu_torch.ops.image import build_pyramid, extract_patches, gaussian_kernel1d
+from ucoslam_tpu_torch.utils.timers import timers
 
 PATCH_RADIUS = 15
 EDGE_MARGIN = 19  # keypoints closer than this to a level border are dropped
@@ -228,17 +229,19 @@ class ORBExtractor:
 
     def detect_and_compute(self, img: torch.Tensor) -> Keypoints:
         """img: (H, W) float32 grayscale -> Keypoints with n = max_features."""
-        levels = build_pyramid(img, self.n_levels, self.scale_factor)
-        xys, resps, octs, valids, patches = [], [], [], [], []
-        for lv, level_img in enumerate(levels):
-            budget = self.budgets[lv]
-            xy, resp, valid = self._detect_level(level_img, budget, self.fast_threshold)
-            patches.append(self._extract_support_patches(level_img, xy))
-            xys.append(xy * self.scales[lv])
-            resps.append(resp)
-            octs.append(torch.full((budget,), lv, dtype=torch.int32, device=img.device))
-            valids.append(valid)
-        ang, desc = self._orient_and_describe(torch.cat(patches))
+        with timers.span("frontend.detect"):
+            levels = build_pyramid(img, self.n_levels, self.scale_factor)
+            xys, resps, octs, valids, patches = [], [], [], [], []
+            for lv, level_img in enumerate(levels):
+                budget = self.budgets[lv]
+                xy, resp, valid = self._detect_level(level_img, budget, self.fast_threshold)
+                patches.append(self._extract_support_patches(level_img, xy))
+                xys.append(xy * self.scales[lv])
+                resps.append(resp)
+                octs.append(torch.full((budget,), lv, dtype=torch.int32, device=img.device))
+                valids.append(valid)
+        with timers.span("frontend.describe"):
+            ang, desc = self._orient_and_describe(torch.cat(patches))
         return Keypoints(
             xy=torch.cat(xys), response=torch.cat(resps), octave=torch.cat(octs),
             angle=ang, desc=desc, valid=torch.cat(valids),

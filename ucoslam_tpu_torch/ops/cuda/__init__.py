@@ -32,10 +32,9 @@ NVCC_FLAGS = (
 
 #: seconds spent in nvcc by this process, per kernel source
 build_seconds: dict[str, float] = {}
-#: held while building, and by the wrappers while they count a launch: in
-#: async mode the tracker and the mapping worker both launch kernels
+#: held while building: in async mode the tracker and the mapping worker
+#: both launch kernels
 _build_lock = threading.Lock()
-count_lock = threading.Lock()
 
 
 def _nvcc() -> str:

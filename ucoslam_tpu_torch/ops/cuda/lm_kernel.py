@@ -19,11 +19,7 @@ from ucoslam_tpu_torch.config import CHI2_2D, CHI2_3D
 from ucoslam_tpu_torch.geometry.se3 import _hat
 from ucoslam_tpu_torch.ops import cuda
 from ucoslam_tpu_torch.optim.robust import huber_weight
-
-#: launches of the CUDA kernel in this process (the plain version does not count)
-launches = 0
-#: of those, the batched launches (motion_only_lm_fused_batched)
-batched_launches = 0
+from ucoslam_tpu_torch.utils.timers import timers
 
 
 def _f32(x) -> float:
@@ -147,7 +143,6 @@ def motion_only_lm_fused(
         raise ValueError(f"motion_only_lm_fused runs on CPU or CUDA tensors, not {dev}")
     if has_depth and depth is None:
         raise ValueError("has_depth needs a depth tensor")
-    global launches
     B = pts3d.shape[0]
     tensors = dict(
         pose_init=(pose_init, torch.float32, (4, 4)), pts3d=(pts3d, torch.float32, (B, 3)),
@@ -171,8 +166,7 @@ def motion_only_lm_fused(
         pose.data_ptr(), mask.data_ptr(), cuda.stream_handle(dev),
     )
     cuda.check_launch(err, "motion_only_lm")
-    with cuda.count_lock:
-        launches += 1
+    timers.count("B2")
     return pose, mask.view(torch.bool)
 
 
@@ -213,7 +207,6 @@ def motion_only_lm_fused_batched(
         raise ValueError("has_depth needs a depth tensor")
     if pts3d.dim() != 3:
         raise ValueError(f"pts3d has shape {tuple(pts3d.shape)}, expected (C, B, 3)")
-    global launches, batched_launches
     C, B = pts3d.shape[:2]
     tensors = dict(
         pose_init=(pose_init, torch.float32, (C, 4, 4)), pts3d=(pts3d, torch.float32, (C, B, 3)),
@@ -239,9 +232,8 @@ def motion_only_lm_fused_batched(
         pose.data_ptr(), mask.data_ptr(), cuda.stream_handle(dev),
     )
     cuda.check_launch(err, "motion_only_lm (batched)")
-    with cuda.count_lock:
-        launches += 1
-        batched_launches += 1
+    timers.count("B2")
+    timers.count("B2_batched")
     return pose, mask.view(torch.bool)
 
 

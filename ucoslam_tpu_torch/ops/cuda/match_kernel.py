@@ -14,9 +14,7 @@ import torch
 
 from ucoslam_tpu_torch.ops import cuda
 from ucoslam_tpu_torch.ops.hamming import INVALID_DIST, hamming_matrix, match_best2
-
-#: launches of the CUDA kernel in this process (the plain version does not count)
-launches = 0
+from ucoslam_tpu_torch.utils.timers import timers
 
 
 def project_match_plain(desc_a, uv_a, oct_a, valid_a, desc_b, uv_b, oct_b, valid_b, radius2):
@@ -48,7 +46,6 @@ def project_match(desc_a, uv_a, oct_a, valid_a, desc_b, uv_b, oct_b, valid_b, ra
     dev = desc_a.device
     if dev.type != "cuda":
         raise ValueError(f"project_match runs on CPU or CUDA tensors, not {dev}")
-    global launches
     P, N = desc_a.shape[0], desc_b.shape[0]
     cuda.check_cuda_args(
         dev,
@@ -70,8 +67,7 @@ def project_match(desc_a, uv_a, oct_a, valid_a, desc_b, uv_b, oct_b, valid_b, ra
         cuda.stream_handle(dev),
     )
     cuda.check_launch(err, "project_match")
-    with cuda.count_lock:
-        launches += 1
+    timers.count("B1")
     return idx, best, second
 
 

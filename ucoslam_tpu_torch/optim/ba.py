@@ -43,6 +43,7 @@ from ucoslam_tpu_torch.geometry.se3 import _hat, se3_exp
 from ucoslam_tpu_torch.mapping.frame import fetch_to_host
 from ucoslam_tpu_torch.mapping.map import Map
 from ucoslam_tpu_torch.markers.ippe import marker_object_points
+from ucoslam_tpu_torch.utils.timers import timers
 
 #: keyframe-slot bucket of a problem (the reference's K quantum): the
 #: dense/point-major rule sees the same V as the reference
@@ -451,9 +452,10 @@ def _staged_lm(problem: BAProblem, cam: CameraParams, iters: int, stages: int, u
         cost = _total_cost(problem, cam_pose, mk_pose, pt_pos, cam, active, robust, psum)
         lam = torch.tensor(1e-4, dtype=torch.float32, device=cam_pose.device)
         for _ in range(iters):
-            cam_pose, mk_pose, pt_pos, lam, cost = _lm_step(
-                problem, cam, free, w_info, active, robust, use_cg, cg_iters, psum, cam_pose, mk_pose, pt_pos, lam,
-                cost)
+            with timers.span("ba.lm_step"):
+                cam_pose, mk_pose, pt_pos, lam, cost = _lm_step(
+                    problem, cam, free, w_info, active, robust, use_cg, cg_iters, psum, cam_pose, mk_pose, pt_pos,
+                    lam, cost)
             all_costs.append(cost)
         if stage < stages - 1:
             c2_s, q_s = _chi2_of(problem, cam_pose, pt_pos, cam)
@@ -887,21 +889,25 @@ def local_bundle_adjustment(
     """Covis-window BA around a keyframe: the neighbours sharing >= 15
     points are optimized, the keyframes they share points with are held
     fixed. Returns the number of bad associations removed."""
-    covis = world_map.covis_matrix()
-    w = covis[center_kf].copy()
-    w[center_kf] = 0
-    order = np.argsort(-w)
-    cap = (len(order) + 1) if max_window is None else max_window
-    window = [center_kf] + [int(s) for s in order[: cap - 1] if w[s] >= 15]
-    if len(window) < 2:
-        return 0
-    window_set = set(window)
-    boundary = [int(s) for s in np.nonzero(covis[window].sum(0) > 0)[0] if int(s) not in window_set]
-    problem, kf_slots, pt_slots, mk_slots = build_ba_problem(
-        world_map, cam, used_kfs=np.asarray(window), fixed_kfs=np.asarray(boundary, int),
-        fix_first=len(boundary) == 0,
-    )
-    if len(pt_slots) == 0:
-        return 0
-    result, solved = _solve_dispatch(problem, cam, n_iters, len(pt_slots))
-    return apply_ba_result(world_map, result, kf_slots, pt_slots, solved, mk_slots=mk_slots)
+    with timers.span("ba.local_ba"):
+        with timers.span("ba.build"):
+            covis = world_map.covis_matrix()
+            w = covis[center_kf].copy()
+            w[center_kf] = 0
+            order = np.argsort(-w)
+            cap = (len(order) + 1) if max_window is None else max_window
+            window = [center_kf] + [int(s) for s in order[: cap - 1] if w[s] >= 15]
+            if len(window) < 2:
+                return 0
+            window_set = set(window)
+            boundary = [int(s) for s in np.nonzero(covis[window].sum(0) > 0)[0] if int(s) not in window_set]
+            problem, kf_slots, pt_slots, mk_slots = build_ba_problem(
+                world_map, cam, used_kfs=np.asarray(window), fixed_kfs=np.asarray(boundary, int),
+                fix_first=len(boundary) == 0,
+            )
+        if len(pt_slots) == 0:
+            return 0
+        with timers.span("ba.solve"):
+            result, solved = _solve_dispatch(problem, cam, n_iters, len(pt_slots))
+        with timers.span("ba.apply"):
+            return apply_ba_result(world_map, result, kf_slots, pt_slots, solved, mk_slots=mk_slots)

@@ -39,6 +39,7 @@ import torch
 from ucoslam_tpu_torch.config import CHI2_2D
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.ops.cuda.lm_kernel import motion_only_lm_fused, motion_only_lm_fused_batched
+from ucoslam_tpu_torch.utils.timers import timers
 
 
 @dataclass
@@ -159,12 +160,13 @@ def pnp_ransac(
     best_inl = torch.gather(ok, -2, best[..., None, None].expand(lead + (1, B)))[..., 0, :]
     args = (best_pose.contiguous(), pts3d.contiguous(), uv.contiguous(), sigma2.contiguous(),
             best_inl.contiguous(), cam.fx, cam.fy, cam.cx, cam.cy)
-    if lead:
-        flat = [a.reshape((-1,) + a.shape[len(lead):]) if torch.is_tensor(a) else a for a in args]
-        pose, inliers = motion_only_lm_fused_batched(*flat, iters=refine_iters, rounds=2)
-        pose, inliers = pose.reshape(lead + (4, 4)), inliers.reshape(lead + (B,))
-    else:
-        pose, inliers = motion_only_lm_fused(*args, iters=refine_iters, rounds=2)
+    with timers.span("tracking.refine"):
+        if lead:
+            flat = [a.reshape((-1,) + a.shape[len(lead):]) if torch.is_tensor(a) else a for a in args]
+            pose, inliers = motion_only_lm_fused_batched(*flat, iters=refine_iters, rounds=2)
+            pose, inliers = pose.reshape(lead + (4, 4)), inliers.reshape(lead + (B,))
+        else:
+            pose, inliers = motion_only_lm_fused(*args, iters=refine_iters, rounds=2)
     n = inliers.sum(-1)
     good = n >= min_inliers
     return PnPResult(pose_f2g=pose, inliers=inliers & good[..., None], n_inliers=torch.where(good, n, 0))

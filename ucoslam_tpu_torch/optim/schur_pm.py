@@ -45,6 +45,7 @@ from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.geometry.se3 import _hat, se3_exp
 from ucoslam_tpu_torch.mapping.frame import fetch_to_host
 from ucoslam_tpu_torch.optim.ba import _inv3x3, _pad_row, block_jacobi, pcg
+from ucoslam_tpu_torch.utils.timers import timers
 
 
 @dataclass
@@ -399,7 +400,9 @@ def pm_staged_lm(pm: PMProblem, cam: CameraParams, iters: int = 20, stages: int 
         for _ in range(n_macro):
             frozen = relinearize(w_info, robust, cam_pose, pt_pos, lam)
             for _ in range(R):
-                cam_pose, pt_pos, lam, cost = inner_step(w_info, active, robust, frozen, cam_pose, pt_pos, lam, cost)
+                with timers.span("ba.lm_step"):
+                    cam_pose, pt_pos, lam, cost = inner_step(w_info, active, robust, frozen, cam_pose, pt_pos, lam,
+                                                             cost)
                 all_costs.append(cost)
         if stage < stages - 1:
             c2_s, q_s = _chi2_pm(pm, cam_pose, pt_pos, cam)

@@ -236,14 +236,15 @@ class MapManager:
             err, self._worker_error = self._worker_error, None
             raise err
 
-    def enqueue_keyframe(self, frame: Frame, **host) -> bool:
+    def enqueue_keyframe(self, frame: Frame, trace_frame=None, **host) -> bool:
         """Hand a keyframe candidate (and the tracker's host copies of its
         ids/depth/valid, `new_keyframe`'s host_*) to the worker; False when
-        the queue is full."""
+        the queue is full. trace_frame: the (session, fseq) the worker's
+        spans of this keyframe carry."""
         with self._lock:
             self._pending_kf += 1
         try:
-            self._queue.put_nowait(("kf", (frame, host)))
+            self._queue.put_nowait(("kf", (frame, trace_frame, host)))
             return True
         except queue.Full:
             with self._lock:
@@ -289,13 +290,15 @@ class MapManager:
                     if payload[0].shape[0] == world_map.state.P:  # not from before a growth of the arena
                         world_map.bump_point_stats(*payload)
                 elif kind == "kf":
-                    frame, host = payload
-                    pose_before = frame.pose_f2g.cpu().numpy()
-                    self.last_scale_correction = 1.0
-                    loops_before = self.loop_closures
-                    kf_slot = self.new_keyframe(world_map, frame, **host)
-                    self._publish_update(pose_before, world_map.h("kf_pose")[kf_slot],
-                                         self.last_scale_correction, self.loop_closures != loops_before)
+                    frame, trace_frame, host = payload
+                    session, fseq = trace_frame or (None, None)
+                    with timers.span("mapping.new_keyframe", session, fseq):
+                        pose_before = frame.pose_f2g.cpu().numpy()
+                        self.last_scale_correction = 1.0
+                        loops_before = self.loop_closures
+                        kf_slot = self.new_keyframe(world_map, frame, **host)
+                        self._publish_update(pose_before, world_map.h("kf_pose")[kf_slot],
+                                             self.last_scale_correction, self.loop_closures != loops_before)
             except BaseException as e:  # raised by wait_idle
                 self._worker_error = e
             finally:
@@ -311,35 +314,39 @@ class MapManager:
         host copies of the frame's ids/depth/valid the tracker fetched."""
         p = self.params
         self.n_insertions += 1
-        if world_map.keyframes.n_active >= world_map.state.K - 1:
-            self.kfdb.grow(world_map.grow_keyframes())
-        if world_map.points.n_active >= int(0.95 * world_map.state.P):
-            world_map.grow_points()
-        # drop ids whose slots were freed since the frame was tracked
-        ids = host_ids if host_ids is not None else frame.ids.cpu().numpy()
-        if (ids >= 0).any():
-            alive = world_map.h("pt_active")
-            stale = (ids >= 0) & ~alive[np.clip(ids, 0, len(alive) - 1)]
-            if stale.any():
-                ids = np.where(stale, -1, ids).astype(np.int32)
-                frame = frame.replace(ids=torch.from_numpy(ids).to(world_map.device))
-        kf_slot = world_map.add_keyframe(frame)
-        self.kf_counter += 1
-        if p.detectMarkers and frame.markers.valid.any():
-            self._add_marker_observations(world_map, kf_slot, frame)
-        self._create_stereo_points(world_map, kf_slot, frame, host_depth=host_depth, host_valid=host_valid, host_ids=ids)
-        self._create_epipolar_points(world_map, kf_slot)
-        self._fuse_duplicates(world_map, kf_slot)
-        self._cull_recent_points(world_map)
+        with timers.span("mapping.insert"):
+            if world_map.keyframes.n_active >= world_map.state.K - 1:
+                self.kfdb.grow(world_map.grow_keyframes())
+            if world_map.points.n_active >= int(0.95 * world_map.state.P):
+                world_map.grow_points()
+            # drop ids whose slots were freed since the frame was tracked
+            ids = host_ids if host_ids is not None else frame.ids.cpu().numpy()
+            if (ids >= 0).any():
+                alive = world_map.h("pt_active")
+                stale = (ids >= 0) & ~alive[np.clip(ids, 0, len(alive) - 1)]
+                if stale.any():
+                    ids = np.where(stale, -1, ids).astype(np.int32)
+                    frame = frame.replace(ids=torch.from_numpy(ids).to(world_map.device))
+            kf_slot = world_map.add_keyframe(frame)
+            self.kf_counter += 1
+            if p.detectMarkers and frame.markers.valid.any():
+                self._add_marker_observations(world_map, kf_slot, frame)
+        with timers.span("mapping.new_points"):
+            self._create_stereo_points(world_map, kf_slot, frame, host_depth=host_depth, host_valid=host_valid,
+                                       host_ids=ids)
+            self._create_epipolar_points(world_map, kf_slot)
+        with timers.span("mapping.fuse"):
+            self._fuse_duplicates(world_map, kf_slot)
+        with timers.span("mapping.cull"):
+            self._cull_recent_points(world_map)
         if world_map.n_keyframes >= 3:
-            with timers.stage("localBA"):
-                ba.local_bundle_adjustment(world_map, self.cam, kf_slot, n_iters=10,
-                                           max_window=p.maxLocalKeyFrames or None)
-        world_map.state = op_update_point_stats(world_map.state, float(p.scaleFactor), int(p.nOctaveLevels))
-        self._cull_keyframes(world_map, kf_slot)
-
-        self.kfdb.add(kf_slot, frame.desc, frame.valid)
-        with timers.stage("loop"):
+            ba.local_bundle_adjustment(world_map, self.cam, kf_slot, n_iters=10, max_window=p.maxLocalKeyFrames or None)
+        with timers.span("mapping.cull"):
+            world_map.state = op_update_point_stats(world_map.state, float(p.scaleFactor), int(p.nOctaveLevels))
+            self._cull_keyframes(world_map, kf_slot)
+        with timers.span("mapping.kfdb"):
+            self.kfdb.add(kf_slot, frame.desc, frame.valid)
+        with timers.span("mapping.loop"):
             self._detect_and_close_loop(world_map, kf_slot, frame)
         return kf_slot
 

@@ -114,16 +114,15 @@ class System:
         if self.map.n_keyframes == 0:
             if self.mode == Mode.LOCALIZATION:
                 return None
-            return self._try_initialize(frame)
+            with timers.span("slam.initialize"):
+                return self._try_initialize(frame)
 
         # async: one consistent state for the whole frame, whatever the worker writes
         view = self.map.snapshot() if is_async else self.map
         if self.state == TrackingState.TRACKING:
-            with timers.stage("track"):
-                res = self.tracker.track(view, frame, self._prior())
+            res = self.tracker.track(view, frame, self._prior())
         elif self.params.reLocalizationWithKeyPoints:
-            with timers.stage("reloc"):
-                res = self.tracker.relocalize(view, frame, kfdb=self.manager.kfdb)
+            res = self.tracker.relocalize(view, frame, kfdb=self.manager.kfdb)
         else:
             res = TrackResult(False, None, frame, 0, 0, np.zeros(0, np.int32))
 
@@ -176,7 +175,8 @@ class System:
                 # a keyframe goes to an idle worker (backpressure: MapManager)
                 self.manager.wait_for_worker()
             if need_kf and self.manager.enqueue_keyframe(
-                res.frame, host_ids=res.host_ids, host_depth=res.host_depth, host_valid=res.host_valid
+                res.frame, trace_frame=timers.frame(), host_ids=res.host_ids, host_depth=res.host_depth,
+                host_valid=res.host_valid,
             ):
                 self.frames_since_kf = 0
                 self.last_kf_inliers = max(res.n_inliers, 1)
@@ -186,7 +186,7 @@ class System:
         if need_kf:
             self.manager.last_scale_correction = 1.0
             loops_before = self.manager.loop_closures
-            with timers.stage("mapping"):
+            with timers.span("mapping.new_keyframe"):
                 kf_slot = self.manager.new_keyframe(
                     self.map, res.frame, host_ids=res.host_ids, host_depth=res.host_depth, host_valid=res.host_valid
                 )

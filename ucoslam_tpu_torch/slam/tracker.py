@@ -36,6 +36,7 @@ from ucoslam_tpu_torch.matching.kfmatch import match_keyframe_points_pnp_batch
 from ucoslam_tpu_torch.matching.projection import match_points_to_frame
 from ucoslam_tpu_torch.ops.hamming import INVALID_DIST, filter_ambiguous_train_sized, hamming_matrix, match_best2
 from ucoslam_tpu_torch.optim.pnp import draw_rows, motion_only_lm, pnp_ransac
+from ucoslam_tpu_torch.utils.timers import timers
 
 #: marker-corner rows appended to the motion-only LM (4 per frame marker)
 MK_ROWS = 64
@@ -81,11 +82,16 @@ def _track_step(
     sigma2 = torch.exp(2.0 * frame.octave.to(torch.float32) * log_sf)
 
     def match_and_refine(pose0, thr, iters, rounds):
-        m = match_points_to_frame(
-            state.pt_pos, state.pt_desc, state.pt_normal, state.pt_min_dist,
-            state.pt_max_dist, state.pt_active, frame, cam, pose0, thr,
-            max_desc_dist, scale_factor,
-        )
+        with timers.span("tracking.project_match"):
+            m = match_points_to_frame(
+                state.pt_pos, state.pt_desc, state.pt_normal, state.pt_min_dist,
+                state.pt_max_dist, state.pt_active, frame, cam, pose0, thr,
+                max_desc_dist, scale_factor,
+            )
+        with timers.span("tracking.refine"):
+            return refine(m, pose0, iters, rounds)
+
+    def refine(m, pose0, iters, rounds):
         # compact to KEYPOINT-major rows before the LM (N rows, not P)
         safe_k = torch.where(m.point_valid, m.kpt_idx, n).long()
         pt_of_kpt = torch.full((n + 1,), -1, dtype=torch.int32, device=dev)
@@ -187,6 +193,10 @@ class Tracker:
         )
 
     def track(self, world_map: Map, frame: Frame, prior: torch.Tensor) -> TrackResult:
+        with timers.span("tracking.track"):
+            return self._track(world_map, frame, prior)
+
+    def _track(self, world_map: Map, frame: Frame, prior: torch.Tensor) -> TrackResult:
         p = self.params
         mk_rows = self._marker_rows(world_map, frame)
         pose, ids, inlier, n_matched, n_inliers, vis, seen = self._step(
@@ -232,15 +242,20 @@ class Tracker:
         """Relocalize a lost tracker: through the keyframe database's BoW
         candidates when there is a real one, else by brute force against
         the whole point arena (module docstring)."""
+        with timers.span("tracking.relocalize"):
+            return self._relocalize(world_map, frame, kfdb)
+
+    def _relocalize(self, world_map: Map, frame: Frame, kfdb) -> TrackResult:
         self.n_relocalizations += 1
         p = self.params
         if kfdb is not None and not kfdb.dummy:
             cands = kfdb.relocalization_candidates(
                 frame.desc, frame.valid, world_map.keyframes.active, covis=world_map.covis_matrix()
             )
-            cms = match_keyframe_points_pnp_batch(
-                world_map, frame, cands, self.cam, p, self._draw, min_matches=20, min_inliers=15
-            )
+            with timers.span("tracking.ransac"):
+                cms = match_keyframe_points_pnp_batch(
+                    world_map, frame, cands, self.cam, p, self._draw, min_matches=20, min_inliers=15
+                )
             # the best-supported verified pose first
             for cm in sorted(cms, key=lambda c: -c.n_inliers):
                 if cm.ok:
@@ -254,9 +269,11 @@ class Tracker:
         uv = frame.und_xy[safe]
         log_sf = torch.log(torch.tensor(p.scaleFactor, dtype=torch.float32, device=self.device))
         sigma2 = torch.exp(2.0 * frame.octave[safe].to(torch.float32) * log_sf)
-        sample_idx = torch.from_numpy(self._draw(valid.cpu().numpy(), p.ransacIters)).to(self.device)
-        res = pnp_ransac(st.pt_pos, uv, sigma2, valid, self.cam, sample_idx)
-        if int(res.n_inliers) < 20:
+        with timers.span("tracking.ransac"):
+            sample_idx = torch.from_numpy(self._draw(valid.cpu().numpy(), p.ransacIters)).to(self.device)
+            res = pnp_ransac(st.pt_pos, uv, sigma2, valid, self.cam, sample_idx)
+            n_inliers = int(res.n_inliers)
+        if n_inliers < 20:
             return self._lost(frame)
         # refine with projection tracking from the RANSAC pose
         return self.track(world_map, frame, res.pose_f2g)

@@ -5,8 +5,8 @@
 
 Phases (each prints one line or more; any failure raises and exits non-zero):
 
-1. environment: the card's name and power limit, TF32 off, both CUDA
-   kernels built from `ucoslam_tpu_torch/csrc` with nvcc;
+1. environment: the card's name and power limit, TF32 off, the CUDA
+   kernels built from `ucoslam_tpu_torch/csrc` with nvcc (all at once);
 2. kernel B1 (projection matching) against its plain PyTorch version on the
    card at P=16384 map points x N=2048 keypoints, with 90% of the rows live
    and at the slice's live share (SLICE_LIVE_ROWS): idx, best and second
@@ -19,13 +19,22 @@ Phases (each prints one line or more; any failure raises and exits non-zero):
    masks as the plain version, each problem bit-equal to its own single
    launch, and C=1 bit-equal to the single launch), and at B=16384 (the
    brute-force relocalization's arena);
+   Then kernels F1 and F2 (the detect stage over every pyramid level) on
+   frame 0 of the phase-4 scene at the library's widths (640x480, 8
+   levels, 2048 keypoints) against their plain versions on the card (the
+   candidates and every keypoint slot bit-equal), and each launch's time
+   beside the plain per-level chain's. From phase 4 on, every phase whose
+   frames run the port's ORB-family detector checks F1 and F2 on its own
+   main path: one launch each a `detect_and_compute` (two a stereo frame);
+   the kernels' record gives phase 4's launches a frame and every phase's
+   launches;
 4. the LOCALIZATION slice: `UcoSlam(device="cuda").readFromFile(mono_map.slm)`
    -> `setMode(LOCALIZATION)` -> one frame at a time over the 60-frame
    sequence in reverse, held against the JAX package's run of the same sweep
    (`data/torch_port/mono_reverse_jax.json`): at least as many frames
    tracked, ATE <= 1.2 x JAX + 0.002, every camera centre within 2% of the
-   scene's depth extent of JAX's, both kernels launched twice per track
-   attempt, and B1's live rows on the first attempt within 10% of
+   scene's depth extent of JAX's, B1 and B2 launched twice per track
+   attempt, F1 and F2 once a frame, and B1's live rows on the first attempt within 10% of
    SLICE_LIVE_ROWS;
 5. the SLAM slice: `UcoSlam(device="cuda").setParams(None, params, cam)`
    with the parameters the JAX package mapped with -> `process` over the
@@ -238,7 +247,8 @@ Each kernel's bound is the larger of its bytes (inputs read once, outputs
 written once) over 3.35 TB/s and its operations on these inputs over the
 card's peak rate for them: B2's float32 operations over 67 TFLOP/s, B1's
 instructions (none a fused multiply-add) over the issue rate of 132 SMs x
-128 lanes x 1.98 GHz and its popcounts over 16 a cycle an SM. Host times
+128 lanes x 1.98 GHz and its popcounts over 16 a cycle an SM, F1's
+instructions a level pixel (DETECT_OPS_PER_PIXEL) over the same issue rate. Host times
 (`process`, `new_keyframe` and its steps) end in a device synchronize.
 The last lines are the kernels' JSON record, then `{"ok": true, ...}`.
 It exits non-zero without a result when no CUDA device is present, and when
@@ -289,6 +299,10 @@ B1_GATE_OPS, B1_PASS_OPS, B1_PASS_POPC = 8, 17, 8
 #: normal-equation sums 135, the candidate's capped cost 33; with depth the
 #: stereo row adds 81
 B2_ROW_OPS, B2_ROW_OPS_DEPTH = 222, 303
+#: F1 instructions a level pixel: FAST's 32 subtractions and 2 x 80 min / max
+#: over the arcs, its threshold; the suppression's 7 maxima and 3 compares;
+#: the cell's 4 rounds of a compare and a select
+DETECT_OPS_PER_PIXEL = 32 + 160 + 3 + 10 + 8
 
 
 class SmokeFailure(RuntimeError):
@@ -769,14 +783,15 @@ def phase_environment():
     )
     check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
     from ucoslam_tpu_torch.ops import cuda
-    from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
+    from ucoslam_tpu_torch.ops.cuda import fast_kernel, lm_kernel, match_kernel
     from ucoslam_tpu_torch.slam.system import disable_tf32
 
     disable_tf32()
     t0 = time.perf_counter()
-    cuda.build("match_kernel", "lm_kernel")  # one nvcc each, in parallel
+    cuda.build(*cuda.KERNELS)  # one nvcc each, in parallel
     match_kernel._library()
     lm_kernel._library()
+    fast_kernel._library()
     build_s = time.perf_counter() - t0
     print(f"[1 env] device={name} torch={torch.__version__} cuda={torch.version.cuda} "
           f"build_s={build_s:.2f} nvcc_s={json.dumps(cuda.build_seconds)}")
@@ -900,6 +915,52 @@ def phase_b2_batched() -> dict:
             rec.update(ms_batched=ms, plain_ms_batched=plain_ms, bound_ms_batched=bound_ms,
                        bound_by_batched=bound_by, single_launches_ms_batched=single_ms)
     return rec
+
+
+def phase_detect(scene) -> tuple[dict, dict]:
+    """Kernels F1 and F2 on frame 0 of the scene at the library's widths
+    against their plain versions on the card -> (F1's record, F2's); their
+    launches are counted on the main paths from phase 4 on."""
+    import numpy as np
+    import torch
+    from ucoslam_tpu_torch.features.orb import BLUR_K, EDGE_MARGIN, PATCH_RADIUS, ORBExtractor
+    from ucoslam_tpu_torch.ops.cuda import fast_kernel
+
+    orb = ORBExtractor()
+    img = torch.from_numpy(np.asarray(scene[3][0], np.float32)).to("cuda")
+    pyr = orb._pyramid(img)
+    levels = pyr(img)
+    grid = (orb.cell, orb.k_per_cell)
+    rows = (orb.budgets, orb.scales, PATCH_RADIUS + BLUR_K // 2)
+
+    def f1():
+        return fast_kernel.fast_cells(levels, pyr, orb.fast_threshold, *grid, EDGE_MARGIN)
+
+    def f1_plain():
+        return fast_kernel.fast_cells_plain(levels, pyr, orb.fast_threshold, *grid, EDGE_MARGIN)
+
+    cand = f1()
+    got = fast_kernel.select_keypoints(levels, pyr, *cand, *grid, *rows)
+    want_cand = f1_plain()
+    want = fast_kernel.select_keypoints_plain(levels, pyr, *want_cand, *grid, *rows)
+    torch.cuda.synchronize()
+    check(all(torch.equal(g, w) for g, w in zip(cand, want_cand)), "F1 differs from its plain version")
+    check(all(torch.equal(g, w) for g, w in zip(got, want)), "F2 differs from its plain version")
+    ms = [median_ms(f1, 50), median_ms(lambda: fast_kernel.select_keypoints(levels, pyr, *cand, *grid, *rows), 50)]
+    plain_ms = [median_ms(f1_plain, 5),
+                median_ms(lambda: fast_kernel.select_keypoints_plain(levels, pyr, *cand, *grid, *rows), 5)]
+    n, n_cand, P = sum(orb.budgets), cand[0].numel(), 2 * rows[2] + 1
+    # bytes: F1 reads the levels once and writes the candidates; F2 reads
+    # the candidates and writes the rows and patches (the patches' pixels it
+    # reads are left out: a lower bound)
+    f1_bound = bound_of(4 * levels.numel() + 8 * n_cand, levels.numel() * DETECT_OPS_PER_PIXEL / ISSUE_PER_S)
+    f2_bound = bound_of(8 * n_cand + n * (8 + 4 + 4 + 1 + 4 * P * P), 0.0)
+    recs = []
+    for name, k_ms, p_ms, (b_ms, b_by) in zip(("F1", "F2"), ms, plain_ms, (f1_bound, f2_bound)):
+        print(f"[3 {name}] 640x480 8 levels: exact, valid={int(want[3].sum())} "
+              f"kernel_ms={k_ms:.4f} plain_chain_ms={p_ms:.4f} bound_ms={b_ms:.6f} ({b_by})")
+        recs.append(dict(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=0))
+    return recs[0], recs[1]
 
 
 @contextlib.contextmanager
@@ -1120,6 +1181,7 @@ def phase_slice(scene):
     for k in ("B1", "B2"):
         check(launches[k] > 0 and launches[k] == 2 * attempts,
               f"{k} launched {launches[k]} times for {attempts} track attempts")
+    check_detect_launches(launches, detect_calls(slam, "mono", len(frames)), "[4 slice]")
     check(abs(first_live - SLICE_LIVE_ROWS) <= 0.1 * SLICE_LIVE_ROWS,
           f"B1 had {first_live} live rows on the first attempt; SLICE_LIVE_ROWS is {SLICE_LIVE_ROWS}")
     return launches
@@ -1185,20 +1247,36 @@ def slam_pass(params, cam, images, kind: str = "mono") -> dict:
         launches = counts()
     return dict(slam=slam, poses=poses, t_frame=t_frame, steps=steps, launches=launches,
                 attempts=slam._system.tracker.n_attempts, insertions=mgr.n_insertions,
-                fuse_args=tuple(fuse_args), init=init, **calls)
+                fuse_args=tuple(fuse_args), init=init, detects=detect_calls(slam, kind, len(images)), **calls)
+
+
+def detect_calls(slam, kind: str, frames: int) -> int:
+    """The detect_and_compute calls of `frames` frames of `kind` through
+    slam's extractor, each one launch of F1 and one of F2: one an image
+    (two a stereo frame) where the detector is the port's ORBExtractor,
+    none for the cv2 families."""
+    from ucoslam_tpu_torch.features.orb import ORBExtractor
+
+    return frames * (2 if kind == "stereo" else 1) if isinstance(slam._extractor.orb, ORBExtractor) else 0
+
+
+def check_detect_launches(launches: dict, calls: int, what: str) -> None:
+    check(launches["F1"] == launches["F2"] == calls,
+          f"{what}: F1 / F2 launched {launches['F1']} / {launches['F2']} times for {calls} detect_and_compute calls")
 
 
 def check_slam_launches(run: dict, what: str) -> None:
     """B1 = 2 x track attempts + duplicate fusions (one per keyframe
     insertion, and one per keyframe of a loop's seam); B2 = 2 x track
     attempts (a marker fallback's retried track among them) + batched
-    verifications + marker pose refines."""
+    verifications + marker pose refines; F1 = F2 = the detector's calls."""
     n1, n2, a, k = run["launches"]["B1"], run["launches"]["B2"], run["attempts"], run["insertions"]
     nb, fu, mk = run["launches"]["B2_batched"], run["fusions"], run["marker_lm"]
     check(a > 0 and k > 0 and fu >= k, f"{what}: {a} track attempts, {k} keyframe insertions, {fu} fusions")
     check(n1 == 2 * a + fu, f"{what}: B1 launched {n1} times for {a} track attempts and {fu} fusions")
     check(n2 == 2 * a + nb + mk, f"{what}: B2 launched {n2} times for {a} track attempts, {nb} batched "
           f"verifications and {mk} marker refines")
+    check_detect_launches(run["launches"], run["detects"], what)
 
 
 def phase_slam(scene, map_path: str, workdir: str) -> dict:
@@ -1279,10 +1357,11 @@ def phase_slam(scene, map_path: str, workdir: str) -> dict:
           f"launches={rev_launches}")
     check(len(rev) >= ref["pass2_tracked"] - 2, "the reverse sweep tracked over 2 frames fewer than JAX's")
     check(rev_ate <= 1.2 * ref["pass2_ate"] + 0.002, f"reverse-sweep ATE {rev_ate} over the limit")
-    for k, n in rev_launches.items():
-        check(k == "B2_batched" or n > 0 and n == 2 * rev_attempts,
-              f"{k} launched {n} times for {rev_attempts} track attempts")
-        launches[k] += n
+    for k in ("B1", "B2"):
+        check(rev_launches[k] > 0 and rev_launches[k] == 2 * rev_attempts,
+              f"{k} launched {rev_launches[k]} times for {rev_attempts} track attempts")
+    check_detect_launches(rev_launches, detect_calls(loc, "mono", len(images)), "[5 slam] reverse sweep")
+    launches = {k: n + rev_launches[k] for k, n in launches.items()}
 
     def med(ts):
         return f"{np.median(ts):.3f}" if ts else "none"
@@ -1308,6 +1387,9 @@ def recovery_ref(name: str) -> dict:
 
 #: the tracer's launch counters at the last reset_counts()
 _COUNTS_AT_RESET: dict = {}
+#: the kernels' launch counters (`timers.count`): B1, B2 single and
+#: batched, F1, F2
+KERNEL_COUNTERS = ("B1", "B2", "B2_batched", "F1", "F2")
 
 
 def counts() -> dict:
@@ -1316,7 +1398,7 @@ def counts() -> dict:
     from ucoslam_tpu_torch.utils.timers import timers
 
     now = timers.counters()
-    return {k: now.get(k, 0) - _COUNTS_AT_RESET.get(k, 0) for k in ("B1", "B2", "B2_batched")}
+    return {k: now.get(k, 0) - _COUNTS_AT_RESET.get(k, 0) for k in KERNEL_COUNTERS}
 
 
 def reset_counts() -> None:
@@ -1378,6 +1460,7 @@ def reloc_sweep(scene, brute_force: bool, map_path: str = MAP_PATH, jax_ref: dic
     check(ate <= 1.2 * jax_ref["ate"] + 0.002, f"{what}: ATE {ate} over the limit")
     check(dev <= tol, f"{what}: camera centre {dev} from the JAX pose (tol {tol})")
     check(launches["B1"] == 2 * tracker.n_attempts, f"{what}: B1 launched {launches['B1']} times")
+    check_detect_launches(launches, detect_calls(slam, "mono", seq.n_frames), what)
     if brute_force:  # one single launch at B = the arena per relocalization, 2 per track attempt
         check(launches["B2_batched"] == 0 and launches["B2"] == 2 * tracker.n_attempts + tracker.n_relocalizations,
               f"{what}: B2 launches {launches}")
@@ -1415,7 +1498,7 @@ def phase_recovery(scene) -> dict:
     from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
 
     ref, cam, seq, images = scene
-    launches = {"B1": 0, "B2": 0, "B2_batched": 0}
+    launches = dict.fromkeys(KERNEL_COUNTERS, 0)
     out = {}
     for brute_force in (False, True):
         r = reloc_sweep(scene, brute_force)
@@ -1563,7 +1646,7 @@ def phase_loop(slam_map_slm: str, cam) -> dict:
     check(a < b, "globalOptimization did not lower the chi2")
     check(abs(a - a_cpu) <= 0.01 * a_cpu, f"card chi2 {a} not within 1% of the CPU's {a_cpu}")
     check(d_pose <= 1e-3, f"card and CPU keyframe poses differ by {d_pose} after globalOptimization")
-    return dict(launches={k: c[k] for k in ("B1", "B2", "B2_batched")})
+    return dict(launches=c)
 
 
 def count_launches(fn) -> int:
@@ -1666,16 +1749,18 @@ def localize_sweep(map_path: str, cam, images, reloc: bool = False, capture: boo
                 poses[i] = pose
         launches = counts()
     return dict(slam=slam, signature=signature, poses=poses, t_frame=t_frame, launches=launches, calls=calls,
-                b2_args=kept or None, attempts=slam._system.tracker.n_attempts, marker_poses=slam._system.n_marker_poses)
+                b2_args=kept or None, attempts=slam._system.tracker.n_attempts, marker_poses=slam._system.n_marker_poses,
+                detects=detect_calls(slam, kind, len(images)))
 
 
 def check_sweep_launches(run: dict, what: str) -> None:
     """A LOCALIZATION sweep: B1 = 2 x attempts; B2 = 2 x attempts + batched
-    verifications + marker pose refines."""
+    verifications + marker pose refines; F1 = F2 = the detector's calls."""
     n, a, mk = run["launches"], run["attempts"], run["calls"]["marker_lm"]
     check(n["B1"] == 2 * a, f"{what}: B1 launched {n['B1']} times for {a} track attempts")
     check(n["B2"] == 2 * a + n["B2_batched"] + mk,
           f"{what}: B2 launched {n['B2']} times for {a} attempts, {n['B2_batched']} batched, {mk} marker refines")
+    check_detect_launches(n, run["detects"], what)
 
 
 def marker_loop_on(device: str) -> dict:
@@ -1767,7 +1852,7 @@ def phase_markers(frames: int, workdir: str) -> dict:
     params = Params.from_dict(load_map_meta(jax_map)["params"])  # what the JAX package mapped with
     check(params.detectMarkers and params.aruco_markerSize == 0.6, "the marker reference's parameters")
     truth, j1 = seq.marker_poses, ref["pass1"]
-    launches = {"B1": 0, "B2": 0, "B2_batched": 0}
+    launches = dict.fromkeys(KERNEL_COUNTERS, 0)
 
     def add(c):
         for k in launches:
@@ -1953,7 +2038,7 @@ def phase_depth(kind: str, frames: int, workdir: str) -> dict:
     params = Params.from_dict(load_map_meta(jax_map)["params"])  # what the JAX package mapped with
     check(cam.bl == 0.25 and not params.detectMarkers, f"({kind}) the reference's camera and parameters")
     j1 = ref["pass1"]
-    launches = {"B1": 0, "B2": 0, "B2_batched": 0}
+    launches = dict.fromkeys(KERNEL_COUNTERS, 0)
 
     def add(c):
         for k in launches:
@@ -2346,7 +2431,8 @@ def async_pass(params, cam, images, drained: bool = False) -> dict:
         slam.waitForFinished()
         launches = counts()
     return dict(slam=slam, poses=poses, t_track=t_track, t_kf=t_kf, launches=launches,
-                attempts=slam._system.tracker.n_attempts, insertions=mgr.n_insertions, **calls)
+                attempts=slam._system.tracker.n_attempts, insertions=mgr.n_insertions,
+                detects=detect_calls(slam, "mono", len(images)), **calls)
 
 
 def lost_after_init(tracked: int, init_frame: int, n_frames: int) -> int:
@@ -2654,7 +2740,7 @@ def phase_harness(frames: int, workdir: str) -> dict:
 
     with open(HARNESS_REF_PATH) as f:
         refs = json.load(f)["runs"][str(frames)]
-    launches = {"B1": 0, "B2": 0, "B2_batched": 0}
+    launches = dict.fromkeys(KERNEL_COUNTERS, 0)
     b1, b2 = {}, {}
 
     def add(n):
@@ -2871,10 +2957,11 @@ def descriptor_slam(family: str, scene, workdir: str) -> dict:
     print(f"[{tag} reload] reverse sweep: tracked={len(rev)} (jax {ref['pass2_tracked']}) ate={rev_ate:.6f} "
           f"(jax {ref['pass2_ate']:.6f}) attempts={attempts} launches={rev_launches}")
     check(len(rev) >= ref["pass2_tracked"] - 2, f"{tag}: the reloaded sweep tracked over 2 frames fewer than JAX's")
-    for k, n in rev_launches.items():
-        check(k == "B2_batched" or n > 0 and n == 2 * attempts,
-              f"{tag}: {k} launched {n} times for {attempts} attempts")
-        launches[k] += n
+    for k in ("B1", "B2"):
+        check(rev_launches[k] > 0 and rev_launches[k] == 2 * attempts,
+              f"{tag}: {k} launched {rev_launches[k]} times for {attempts} attempts")
+    check_detect_launches(rev_launches, detect_calls(loc, "mono", len(images)), f"{tag} reload")
+    launches = {k: n + rev_launches[k] for k, n in launches.items()}
 
     def med(ts):
         return f"{np.median(ts):.3f}" if ts else "none"
@@ -2950,7 +3037,7 @@ def phase_descriptors(scene, workdir: str) -> dict:
           + " ".join(f"{k}={v:.3f}" for k, v in extract_ms.items()))
 
     # (b) each family through SLAM, save, reload, sweep; B1 and B2 on its inputs
-    launches, b1, b2, frame_ms = {"B1": 0, "B2": 0, "B2_batched": 0}, {}, {}, {}
+    launches, b1, b2, frame_ms = dict.fromkeys(KERNEL_COUNTERS, 0), {}, {}, {}
     for family in DESCRIPTOR_FAMILIES:
         part = descriptor_slam(family, scene, workdir)
         launches = {k: n + part["launches"][k] for k, n in launches.items()}
@@ -3230,8 +3317,12 @@ def main(argv=None) -> int:
     lap("3")
     scene = load_scene(REF_PATH)
     lap("render")
+    f1, f2 = phase_detect(scene)
+    lap("3 F1/F2")
     launches = phase_slice(scene)
     lap("4")
+    for rec, k in ((f1, "F1"), (f2, "F2")):  # phase 4 is the localize slice: one frame, one image
+        rec["launches_per_frame"] = launches[k] / scene[2].n_frames
     slam_map, slam_ref = reference_paths(args.frames)
     failed = None
     with tempfile.TemporaryDirectory() as workdir:
@@ -3308,6 +3399,10 @@ def main(argv=None) -> int:
         dict(name="motion_only_lm", route="cuda", source="ucoslam_tpu_torch/csrc/lm_kernel.cu",
              replaces="ucoslam_tpu/ops/pallas/lm_kernel.py:246", launches=launches["B2"],
              library_ms=None, **b2),
+        dict(name="fast_cells", route="cuda", source="ucoslam_tpu_torch/csrc/fast_kernel.cu",
+             replaces=None, launches=launches["F1"], library_ms=None, **f1),
+        dict(name="select_keypoints", route="cuda", source="ucoslam_tpu_torch/csrc/fast_kernel.cu",
+             replaces=None, launches=launches["F2"], library_ms=None, **f2),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 import chip_smoke
-from ucoslam_tpu_torch.ops.cuda import lm_kernel, match_kernel
+from ucoslam_tpu_torch.ops.cuda import fast_kernel, lm_kernel, match_kernel
 from ucoslam_tpu_torch.slam.system import disable_tf32
 from ucoslam_tpu_torch.utils.timers import N_MARKS, DeviceTrace, attribute, now_ns, timers, tracing
 
@@ -205,6 +205,144 @@ def test_match_kernel_equals_plain_at_fuse_inputs(card):
     _assert_b1_equal(args)
     idx, _, _ = match_kernel.project_match(*args)
     assert int((idx >= 0).sum()) > 1000
+
+
+# -- kernels F1 and F2: the detect stage over every level --------------------
+
+
+def _mono_frame(seed: int, frame: int = 40) -> np.ndarray:
+    """A 640x480 frame of the benchmark's `mono` scene (1600 quads, the
+    150-frame arc, the TUM fr1 intrinsics) with this scene seed."""
+    from ucoslam_tpu_torch.geometry.camera import CameraParams
+    from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
+
+    cam = CameraParams.create(517.3, 516.5, 318.6, 255.3, width=640, height=480)
+    return SyntheticSequence(cam=cam, n_points=1600, n_frames=150, seed=seed).render(frame).astype(np.float32)
+
+
+def _assert_detect_equal(card, img, thresholds=(7.0,), **orb_kw):
+    """F1 and F2 on the card against their plain versions on the card, on
+    the extractor's packed pyramid of `img`, at each threshold in turn: the
+    candidates and every keypoint slot (xy, response, octave, valid,
+    patches) bit-equal, one launch of each counted. -> (extractor, pyramid,
+    levels, each threshold's outputs)."""
+    from ucoslam_tpu_torch.features.orb import BLUR_K, EDGE_MARGIN, PATCH_RADIUS, ORBExtractor
+
+    orb = ORBExtractor(**orb_kw)
+    img = torch.as_tensor(img).to(card)
+    pyr = orb._pyramid(img)
+    levels = pyr(img)
+    grid = (orb.cell, orb.k_per_cell)
+    rows = (orb.budgets, orb.scales, PATCH_RADIUS + BLUR_K // 2)
+    outs = []
+    for threshold in thresholds:
+        with tracing():
+            before = timers.counters()
+            cand = fast_kernel.fast_cells(levels, pyr, threshold, *grid, EDGE_MARGIN)
+            got = fast_kernel.select_keypoints(levels, pyr, *cand, *grid, *rows)
+            after = timers.counters()
+        assert {k: after.get(k, 0) - before.get(k, 0) for k in ("F1", "F2")} == {"F1": 1, "F2": 1}
+        want_cand = fast_kernel.fast_cells_plain(levels, pyr, threshold, *grid, EDGE_MARGIN)
+        want = fast_kernel.select_keypoints_plain(levels, pyr, *want_cand, *grid, *rows)
+        for g, w in zip((*cand, *got), (*want_cand, *want)):
+            assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+        outs.append(got)
+    return orb, pyr, levels, outs
+
+
+@pytest.mark.parametrize("seed", [5, 11, 17, 23])
+def test_detect_kernels_equal_plain_on_mono_scenes(card, seed):
+    """(a) The four `mono` scenes at the library's widths (640x480, 8
+    levels, scale 1.2, 2048 keypoints); the packed levels are bit-equal to
+    each level's own two matmuls."""
+    img = _mono_frame(seed)
+    orb, pyr, levels, ((_, _, _, valid, _),) = _assert_detect_equal(card, img)
+    assert int(valid.sum()) > 1500
+    t = torch.from_numpy(img).to(card)
+    for lv in range(1, orb.n_levels):
+        ah, aw = pyr.weights[lv]
+        assert torch.equal(pyr.level(levels, lv), (ah @ t) @ aw.T)
+
+
+def test_detect_kernels_equal_plain_with_ties(card):
+    """(b) An image quantized to steps of 16: level 0's FAST scores are
+    multiples of 16 and tie everywhere, inside cells and across them."""
+    orb, _, _, ((_, resp, _, valid, _),) = _assert_detect_equal(card, np.floor(_mono_frame(5) / 16.0) * 16.0)
+    level0 = resp[: orb.budgets[0]][valid[: orb.budgets[0]]]
+    assert level0.numel() > 500 and level0.unique().numel() <= 16
+
+
+def test_detect_kernels_equal_plain_nms_cells(card):
+    """(c) KPNonMaximaSuppresion's grid: cells of 64, one keypoint a cell."""
+    _assert_detect_equal(card, _mono_frame(11), cell=64, k_per_cell=1)
+
+
+def test_detect_kernels_equal_plain_scaled_detector(card):
+    """(d) kptImageScaleFactor 0.5: the frame resized to 240x320 first."""
+    from ucoslam_tpu_torch.ops.image import resize_linear
+
+    small = resize_linear(torch.from_numpy(_mono_frame(17)).to(card), (240, 320))
+    _assert_detect_equal(card, small)
+
+
+@pytest.mark.parametrize("crop", [(60, 75), (30, 41)])
+def test_detect_kernels_equal_plain_small_images(card, crop):
+    """(e) Levels with fewer candidate slots than their budgets (zero
+    padding), and, at 30x41, every level smaller than one patch."""
+    img = np.ascontiguousarray(_mono_frame(23)[100 : 100 + crop[0], 200 : 200 + crop[1]])
+    _assert_detect_equal(card, img)
+
+
+def test_detect_kernels_follow_the_threshold(card):
+    """(f) The threshold changed between two calls on the same levels, as
+    autoAdjustKpSensitivity does: each call equals its plain version."""
+    dim = np.ascontiguousarray(_mono_frame(5)[:240, :320] * 0.1)  # fewer corners than the budgets
+    _, _, _, (hi, lo) = _assert_detect_equal(card, dim, thresholds=(7.0, 3.0))
+    assert int(lo[3].sum()) > int(hi[3].sum())
+
+
+def test_detect_kernels_launch_once_per_frame(card):
+    """detect_and_compute launches F1 and F2 once each, in frontend.detect."""
+    from ucoslam_tpu_torch.features.orb import ORBExtractor
+
+    orb = ORBExtractor()
+    img = torch.from_numpy(_mono_frame(5)).to(card)
+    orb.detect_and_compute(img)  # builds and caches the pyramid's matrices
+    with tracing():
+        timers.drain()
+        before = timers.counters()
+        orb.detect_and_compute(img)
+        after = timers.counters()
+        spans = {s.name: s for s in timers.drain()}
+    assert {k: after.get(k, 0) - before.get(k, 0) for k in ("F1", "F2")} == {"F1": 1, "F2": 1}
+    assert spans["frontend.detect"].counts == {"F1": 1, "F2": 1}
+
+
+def test_detect_kernels_reject_bad_input(card):
+    from ucoslam_tpu_torch.features.orb import EDGE_MARGIN, ORBExtractor
+
+    orb = ORBExtractor()
+    img = torch.from_numpy(_mono_frame(5)).to(card)
+    pyr = orb._pyramid(img)
+    levels = pyr(img)
+    n = levels.numel()
+    with pytest.raises(TypeError):
+        fast_kernel.fast_cells(levels.double(), pyr, 7.0, 32, 4, EDGE_MARGIN)
+    with pytest.raises(ValueError):
+        fast_kernel.fast_cells(torch.zeros(2 * n, device=card)[::2], pyr, 7.0, 32, 4, EDGE_MARGIN)
+    cand = fast_kernel.fast_cells(levels, pyr, 7.0, 32, 4, EDGE_MARGIN)
+    budgets = [fast_kernel.MAX_SLOTS + 1] + orb.budgets[1:]
+    with pytest.raises(ValueError):
+        fast_kernel.select_keypoints(levels, pyr, *cand, 32, 4, budgets, orb.scales, 18)
+    # the launcher checks the host's layout: one that does not follow from
+    # the shapes and the cell is refused, not read
+    lay = fast_kernel._layout(tuple(pyr.shapes), 32, 4)
+    args = list(fast_kernel._level_args(levels, pyr, 32, lay))
+    args[4] = fast_kernel._ints([g + 1 for g in lay.gw])
+    err = fast_kernel._library().fast_cells_launch(
+        levels.data_ptr(), *args, 32, 4, EDGE_MARGIN, 7.0, cand[0].data_ptr(), cand[1].data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 1  # cudaErrorInvalidValue
 
 
 def _seeded_map_state(device, seed=0):

@@ -11,6 +11,7 @@ can tip, and a bit whose two bf16 samples are one rounding step apart can
 flip.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,15 +19,19 @@ import torch
 
 from ucoslam_tpu.config import Params
 from ucoslam_tpu.features.frame_extractor import FrameExtractor as RefExtractor
+from ucoslam_tpu.features.orb import ORBExtractor as RefORB
 from ucoslam_tpu.geometry.camera import CameraParams as RefCamera
 from ucoslam_tpu.io.synthetic import SyntheticSequence as RefSequence
 from ucoslam_tpu.ops import fast as ref_fast
 from ucoslam_tpu.ops import image as ref_image
 from ucoslam_tpu_torch.config import Params as PortParams
 from ucoslam_tpu_torch.features.frame_extractor import FrameExtractor
+from ucoslam_tpu_torch.features.orb import BLUR_K, EDGE_MARGIN, PATCH_RADIUS, ORBExtractor
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 from ucoslam_tpu_torch.io.synthetic import SyntheticSequence
 from ucoslam_tpu_torch.ops import fast, image
+from ucoslam_tpu_torch.ops.cuda import fast_kernel
+from ucoslam_tpu_torch.utils.timers import timers, tracing
 
 torch.set_num_threads(2)
 
@@ -58,7 +63,10 @@ def test_image_ops_match(seqs):
     np.testing.assert_allclose(
         image.rgb_to_gray(torch.from_numpy(bgr)).numpy(),
         np.asarray(ref_image.rgb_to_gray(jnp.asarray(bgr))), rtol=1e-6, atol=1e-4)
-    for a, b in zip(image.build_pyramid(t, 4, 1.2), ref_image.build_pyramid(j, 4, 1.2)):
+    pyr = image.Pyramid(*t.shape, 4, 1.2, t.device)
+    levels = pyr(t)
+    for lv, b in enumerate(ref_image.build_pyramid(j, 4, 1.2)):
+        a = pyr.level(levels, lv)
         assert a.shape == b.shape
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-3)
     np.testing.assert_allclose(
@@ -79,9 +87,76 @@ def test_fast_nms_topk_exact(seqs):
     np.testing.assert_array_equal(n_port.numpy(), np.asarray(n_ref))
     # quantized scores force many equal values: the order must still agree
     q = np.floor(np.asarray(n_ref) / 8.0).astype(np.float32)
-    for got, want in zip(fast.topk_grid(torch.from_numpy(q), 32, 4, 300),
+    vals, idx = fast.cell_topk(torch.from_numpy(q), 32, 4)
+    for got, want in zip(fast.grid_topk(vals, idx, -(-q.shape[1] // 32), 32, 300),
                          ref_fast.topk_grid(jnp.asarray(q), 32, 4, 300)):
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# -- the detect stage over every level (kernels F1 and F2's plain versions) --
+
+# (image crop, cell, k_per_cell, threshold, levels): the library's frame;
+# the non-maxima-suppression cells; a crop whose levels have fewer candidate
+# slots than their budgets and whose last level is smaller than a patch
+DETECT_CASES = [((480, 640), 32, 4, 7.0, 8), ((480, 640), 64, 1, 7.0, 8), ((60, 75), 32, 4, 3.0, 4)]
+
+
+def _detect_all_levels(orb, img):
+    """The port's detect stage as the extractor runs it: the packed pyramid,
+    then F1 and F2 (the plain versions on a CPU tensor)."""
+    pyr = orb._pyramid(img)
+    levels = pyr(img)
+    cand = fast_kernel.fast_cells(levels, pyr, orb.fast_threshold, orb.cell, orb.k_per_cell, EDGE_MARGIN)
+    return pyr, levels, fast_kernel.select_keypoints(levels, pyr, *cand, orb.cell, orb.k_per_cell,
+                                                     orb.budgets, orb.scales, PATCH_RADIUS + BLUR_K // 2)
+
+
+@pytest.mark.parametrize("crop,cell,k,threshold,n_levels", DETECT_CASES)
+def test_all_level_detect_equals_jax_per_level(seqs, crop, cell, k, threshold, n_levels):
+    """On the same level images, the plain F1 + F2 over all levels give JAX's
+    per-level detector rows exactly: xy at level 0, response, octave, valid
+    and the support patches, in every slot."""
+    img = torch.from_numpy(np.ascontiguousarray(seqs[1].render(11).astype(np.float32)[: crop[0], : crop[1]]))
+    kw = dict(cell=cell, k_per_cell=k, fast_threshold=threshold, n_levels=n_levels)
+    orb, ref = ORBExtractor(**kw), RefORB(**kw)
+    pyr, levels, got = _detect_all_levels(orb, img)
+    detect = jax.jit(ref._detect_level, static_argnums=1)
+    want = [[], [], [], [], []]
+    for lv in range(orb.n_levels):
+        level = jnp.asarray(pyr.level(levels, lv).numpy())
+        xy, resp, valid = detect(level, ref.budgets[lv], jnp.float32(threshold))
+        for out, v in zip(want, (xy * ref.scales[lv], resp, jnp.full((ref.budgets[lv],), lv, jnp.int32), valid,
+                                 ref._extract_support_patches(level, xy))):
+            out.append(np.asarray(v))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.concatenate(w))
+    assert int(got[3].sum()) > (1500 if crop == (480, 640) and k == 4 else 0)
+
+
+def test_detect_wrappers_on_cpu_run_plain_and_count_nothing(seqs):
+    orb = ORBExtractor()
+    img = torch.from_numpy(seqs[1].render(5).astype(np.float32))
+    with tracing():
+        before = timers.counters()
+        pyr, levels, got = _detect_all_levels(orb, img)
+        assert timers.counters() == before
+    cand = fast_kernel.fast_cells_plain(levels, pyr, 7.0, 32, 4, EDGE_MARGIN)
+    want = fast_kernel.select_keypoints_plain(levels, pyr, *cand, 32, 4, orb.budgets, orb.scales,
+                                              PATCH_RADIUS + BLUR_K // 2)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_packed_pyramid_equals_per_level_resize(seqs):
+    """The packed levels are bit-equal to each level's own two matmuls."""
+    img = torch.from_numpy(seqs[1].render(0).astype(np.float32))
+    pyr = image.Pyramid(480, 640, 8, 1.2, "cpu")
+    levels = pyr(img)
+    assert torch.equal(pyr.level(levels, 0), img)
+    for lv in range(1, 8):
+        (oh, ow), (ah, aw) = pyr.shapes[lv], pyr.weights[lv]
+        assert ah.shape == (oh, 480) and aw.shape == (ow, 640)
+        assert torch.equal(pyr.level(levels, lv), (ah @ img) @ aw.T)
 
 
 def _agreement(port_frame, ref_frame):

@@ -169,8 +169,8 @@ def test_counters_attach_to_the_innermost_span():
     assert tr.report() == "" and tr.drain() == []
 
 
-def _span(name, start, end, sid, parent, thread=1):
-    return (name, start, end, sid, parent, 1, 0, thread, {})
+def _span(name, start, end, sid, parent, thread=1, counts=None):
+    return (name, start, end, sid, parent, 1, 0, thread, counts or {})
 
 
 def test_attribute_runtime_calls_to_innermost_spans():
@@ -242,14 +242,15 @@ def test_profile_trace_writes_spans_on_the_trace_clock(tmp_path):
 
 def test_trace_fleet_layer_readings():
     """Launches and waits inside a layer, less a child layer, per frame,
-    keyframe or call; calls outside every span count nowhere."""
+    keyframe or call; calls outside every span count nowhere; the launch
+    counters a frame."""
     spans = [
-        _span("frontend.extract", 0, 10, 1, 0), _span("frontend.detect", 1, 5, 2, 1),
-        _span("tracking.track", 10, 20, 3, 0),
+        _span("frontend.extract", 0, 10, 1, 0), _span("frontend.detect", 1, 5, 2, 1, counts={"F1": 1, "F2": 1}),
+        _span("tracking.track", 10, 20, 3, 0, counts={"B1": 2}),
         _span("mapping.new_keyframe", 20, 80, 4, 0), _span("mapping.fuse", 21, 30, 5, 4),
         _span("ba.local_ba", 30, 70, 6, 4), _span("ba.build", 30, 40, 7, 6), _span("ba.solve", 40, 60, 8, 6),
         _span("ba.lm_step", 41, 50, 9, 8),
-        _span("frontend.extract", 80, 90, 10, 0),
+        _span("frontend.extract", 80, 90, 10, 0), _span("frontend.detect", 81, 85, 11, 10, counts={"F1": 1, "F2": 1}),
     ]
 
     def row(n, w=0.0):
@@ -267,11 +268,12 @@ def test_trace_fleet_layer_readings():
     assert got["mapping.wait_ms"] == pytest.approx(4.0)
     assert got["ba.wait_ms"] == pytest.approx(3.0)
     assert got["ba.build_ms"] == pytest.approx(1e-5)
+    assert (got["counter.F1_per_frame"], got["counter.F2_per_frame"], got["counter.B1_per_frame"]) == (1, 1, 1)
     # nothing to read: the keyframe and BA readings are left out
     got = trace_fleet.program_metrics([{"spans": spans[:3], "stats": stats}])
     assert set(got) == {"frontend.launches_per_frame", "tracking.launches_per_frame", "frontend.wait_ms",
-                        "tracking.wait_ms"}
-    assert [d for _, _, _, d in trace_fleet.depth_spans(spans)] == [0, 1, 0, 0, 1, 1, 2, 2, 3, 0]
+                        "tracking.wait_ms", "counter.B1_per_frame", "counter.F1_per_frame", "counter.F2_per_frame"}
+    assert [d for _, _, _, d in trace_fleet.depth_spans(spans)] == [0, 1, 0, 0, 1, 1, 2, 2, 3, 0, 1]
 
 
 def test_trace_fleet_idle_gaps_by_program_span():

@@ -8,7 +8,8 @@ runtime's calls beside the kernels, on the spans' clock by marker launches),
 and, with `--program-spans 1`, the program's tracer records its spans over
 the traced window. It prints one JSON line: the cell's end-to-end numbers,
 its per-layer metrics as the benchmark reads them, and the readings of the
-program's spans (`program_metrics`): launches and host waits per layer,
+program's spans (`program_metrics`): launches and host waits per layer, the
+hand-written kernels' launch counters a frame (`counter.<name>_per_frame`),
 local BA's table build, the device's idle seconds by innermost program span
 (`idle_gaps_program`, the arithmetic of the benchmark's `idle_gaps`), and
 the share of the window's kernels that a program span launched.
@@ -116,6 +117,13 @@ def program_metrics(streams: list[dict]) -> dict[str, float]:
     builds = [s[2] - s[1] for st in streams for s in st["spans"] if s[0] == "ba.build"]
     if builds:
         out["ba.build_ms"] = 1e-6 * sum(builds) / len(builds)
+    counts: dict[str, int] = {}
+    for st in streams:
+        for s in st["spans"]:
+            for name, n_launch in s[8].items():
+                counts[name] = counts.get(name, 0) + n_launch
+    if frames:
+        out.update({f"counter.{name}_per_frame": n_launch / frames for name, n_launch in sorted(counts.items())})
     return out
 
 

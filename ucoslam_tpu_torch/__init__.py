@@ -3,9 +3,9 @@
 A second package beside the JAX reference `ucoslam_tpu`, with the same
 layout, a copy of its `Params` (`config.py`) and the same checkpoints.
 Plain tensor code is PyTorch; the two Pallas TPU kernels of the reference
-are hand-written CUDA
-kernels for `sm_90a` (`csrc/`), built with `nvcc` at their first launch on a
-CUDA tensor (`ops/cuda`). On a CPU tensor every kernel wrapper runs its plain
+are hand-written CUDA kernels for `sm_90a` (`csrc/`), and so is the
+frontend's detect stage (F1 and F2, `csrc/fast_kernel.cu`), all built with
+`nvcc` at the first launch on a CUDA tensor (`ops/cuda`). On a CPU tensor every kernel wrapper runs its plain
 PyTorch version instead, which is what the CPU tests exercise.
 
 Ported so far: monocular SLAM (`UcoSlam.setParams` ->

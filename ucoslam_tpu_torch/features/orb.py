@@ -29,8 +29,8 @@ import numpy as np
 import torch
 
 from ucoslam_tpu_torch.features import descriptors
-from ucoslam_tpu_torch.ops.fast import fast_score_map, nms3x3, topk_grid
-from ucoslam_tpu_torch.ops.image import build_pyramid, extract_patches, gaussian_kernel1d
+from ucoslam_tpu_torch.ops.cuda.fast_kernel import fast_cells, select_keypoints
+from ucoslam_tpu_torch.ops.image import Pyramid, gaussian_kernel1d
 from ucoslam_tpu_torch.utils.timers import timers
 
 PATCH_RADIUS = 15
@@ -127,7 +127,7 @@ class ORBExtractor:
 
             disable_tf32()
         self.descriptor = descriptor
-        self._tables = {}  # device -> the family's tables there
+        self._tables = {}  # device -> the descriptor's tables there
         self.max_features = max_features
         self.n_levels = n_levels
         self.scale_factor = scale_factor
@@ -137,54 +137,45 @@ class ORBExtractor:
         self.budgets = _level_budgets(max_features, n_levels, scale_factor)
         self.scales = [scale_factor**lv for lv in range(n_levels)]
 
-    def _detect_level(self, level_img: torch.Tensor, budget: int, threshold):
-        score = nms3x3(fast_score_map(level_img, threshold))
-        h, w = level_img.shape
-        interior = torch.zeros_like(score, dtype=torch.bool)
-        interior[EDGE_MARGIN : h - EDGE_MARGIN, EDGE_MARGIN : w - EDGE_MARGIN] = True
-        return topk_grid(torch.where(interior, score, 0.0), self.cell, self.k_per_cell, budget)
-
-    def _extract_support_patches(self, level_img: torch.Tensor, xy: torch.Tensor):
-        """(N, 37, 37) raw patches: descriptor patch + blur support ring."""
-        support = PATCH_RADIUS + BLUR_K // 2
-        need = 2 * support + 1
-        h, w = level_img.shape
-        if h < need or w < need:
-            # levels smaller than one patch yield no valid keypoints
-            level_img = torch.nn.functional.pad(
-                level_img, (0, max(0, need - w), 0, max(0, need - h))
-            )
-        return extract_patches(level_img, xy, support)
+    def _pyramid(self, img: torch.Tensor) -> Pyramid:
+        return Pyramid(*img.shape, self.n_levels, self.scale_factor, img.device)
 
     def _orient_and_describe(self, patches: torch.Tensor):
         """Patch batch (all levels) -> IC angles (N,) + descriptors (N, 8)."""
         P = 2 * PATCH_RADIUS + 1
         b = BLUR_K // 2
-        dev = patches.device
+        t = self._device_tables(patches.device)
         raw = patches[:, b : b + P, b : b + P].reshape(-1, P * P)
-        mom = raw @ torch.from_numpy(MOMENT_KERNEL).to(dev)
+        mom = raw @ t["moment"]
         ang = torch.atan2(mom[:, 1], mom[:, 0])
         if self.descriptor != "orb":
-            return ang, self._describe_table_family(patches, raw, ang)
+            return ang, self._describe_table_family(patches, raw, ang, t)
         bidx = torch.round(ang / (2.0 * np.pi) * DESC_BINS).to(torch.int64) % DESC_BINS
         k = gaussian_kernel1d(BLUR_K, BLUR_SIGMA)
         tmp = sum(float(k[i]) * patches[:, i : i + P, :] for i in range(BLUR_K))
         blur = sum(float(k[i]) * tmp[:, :, i : i + P] for i in range(BLUR_K))
-        index = torch.from_numpy(SAMPLE_INDEX).to(dev)[bidx]  # (N, 512)
+        index = t["sample_index"][bidx]  # (N, 512)
         samp = torch.gather(blur.reshape(-1, P * P).to(torch.bfloat16), 1, index)
         bits = samp[:, 0::2] < samp[:, 1::2]  # (N, 256) pair-major endpoints
         return ang, pack_bits(bits)
 
-    def _family_tables(self, dev: torch.device) -> dict:
-        """The family's tables on `dev`, once: each bin's table rounded to
-        bf16 (as the reference's operands) and laid out (P*P, BINS * S)."""
+    def _device_tables(self, dev: torch.device) -> dict:
+        """The descriptor's tables on `dev`, once: the IC moment weights, and
+        ORB's rotated sample index or the family's tables, each bin's table
+        rounded to bf16 (as the reference's operands) and laid out
+        (P*P, BINS * S)."""
         key = str(dev)
         if key not in self._tables:
+            t = {"moment": torch.from_numpy(MOMENT_KERNEL).to(dev)}
+            if self.descriptor == "orb":
+                t["sample_index"] = torch.from_numpy(SAMPLE_INDEX).to(dev)
+                self._tables[key] = t
+                return t
             if self.descriptor == "freak":
-                t = {"pairs": torch.from_numpy(descriptors.FREAK_PAIRS.astype(np.int64)).to(dev)}
+                t["pairs"] = torch.from_numpy(descriptors.FREAK_PAIRS.astype(np.int64)).to(dev)
                 src = descriptors.freak_tables()
             else:
-                t = {"proj": torch.from_numpy(descriptors.surf_lsh_projection()).to(dev)}
+                t["proj"] = torch.from_numpy(descriptors.surf_lsh_projection()).to(dev)
                 src = descriptors.surf_tables()
             bins, pp, s = src.shape
             w = torch.from_numpy(src).to(torch.bfloat16).to(torch.float32)
@@ -202,14 +193,13 @@ class ORBExtractor:
         sel = full.view(x.shape[0], -1, s).gather(1, bidx[:, None, None].expand(-1, 1, s))[:, 0]
         return sel.to(torch.bfloat16)
 
-    def _describe_table_family(self, patches: torch.Tensor, raw: torch.Tensor, ang: torch.Tensor):
+    def _describe_table_family(self, patches: torch.Tensor, raw: torch.Tensor, ang: torch.Tensor, t: dict):
         """FREAK or SURF descriptors (N, 8), the angle quantized to the
-        tables' DESC_BINS."""
+        tables' DESC_BINS (`t`: the tables on the patches' device)."""
         P = 2 * PATCH_RADIUS + 1
         b = BLUR_K // 2
         nb = descriptors.DESC_BINS
         bidx = torch.round(ang / (2.0 * np.pi) * nb).to(torch.int64) % nb
-        t = self._family_tables(raw.device)
         if self.descriptor == "freak":
             samp = self._binned(raw, t, bidx)  # (N, 43) smoothed retina samples
             bits = samp[:, t["pairs"][:, 0]] < samp[:, t["pairs"][:, 1]]
@@ -230,19 +220,12 @@ class ORBExtractor:
     def detect_and_compute(self, img: torch.Tensor) -> Keypoints:
         """img: (H, W) float32 grayscale -> Keypoints with n = max_features."""
         with timers.span("frontend.detect"):
-            levels = build_pyramid(img, self.n_levels, self.scale_factor)
-            xys, resps, octs, valids, patches = [], [], [], [], []
-            for lv, level_img in enumerate(levels):
-                budget = self.budgets[lv]
-                xy, resp, valid = self._detect_level(level_img, budget, self.fast_threshold)
-                patches.append(self._extract_support_patches(level_img, xy))
-                xys.append(xy * self.scales[lv])
-                resps.append(resp)
-                octs.append(torch.full((budget,), lv, dtype=torch.int32, device=img.device))
-                valids.append(valid)
+            pyr = self._pyramid(img)
+            levels = pyr(img)
+            cand = fast_cells(levels, pyr, self.fast_threshold, self.cell, self.k_per_cell, EDGE_MARGIN)
+            xy, response, octave, valid, patches = select_keypoints(
+                levels, pyr, *cand, self.cell, self.k_per_cell, self.budgets, self.scales,
+                PATCH_RADIUS + BLUR_K // 2)
         with timers.span("frontend.describe"):
-            ang, desc = self._orient_and_describe(torch.cat(patches))
-        return Keypoints(
-            xy=torch.cat(xys), response=torch.cat(resps), octave=torch.cat(octs),
-            angle=ang, desc=desc, valid=torch.cat(valids),
-        )
+            ang, desc = self._orient_and_describe(patches)
+        return Keypoints(xy=xy, response=response, octave=octave, angle=ang, desc=desc, valid=valid)

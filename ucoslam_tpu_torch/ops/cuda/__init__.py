@@ -5,8 +5,9 @@ library with a plain C interface, loaded with `ctypes`. The library lands in
 `build/ucoslam_tpu_torch/` at the repository root, named after a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one is
 reused. Nothing is built when the package is imported: the first launch on a
-CUDA tensor builds, or `build(...)` builds several sources at once, one nvcc
-each; a missing `nvcc` or a failed build raises.
+CUDA tensor builds every kernel of `KERNELS` that is not built yet, one nvcc
+each, all started together (or `build(...)` those named); a missing `nvcc`
+or a failed build raises.
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from pathlib import Path
 
 import torch
 
+#: the kernel sources, `csrc/<name>.cu`: B1, B2, and the detect stage's F1 and F2
+KERNELS = ("match_kernel", "lm_kernel", "fast_kernel")
 CSRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "ucoslam_tpu_torch"
 NVCC_FLAGS = (
@@ -81,8 +84,10 @@ def _build(names) -> None:
 
 @functools.cache
 def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load `csrc/<name>.cu`; cached per process."""
-    build(name)
+    """Load `csrc/<name>.cu`, building first every kernel not built yet (so
+    that no later first launch waits for an nvcc of its own); cached per
+    process."""
+    build(*KERNELS)
     return ctypes.CDLL(str(_library_path(name)))
 
 

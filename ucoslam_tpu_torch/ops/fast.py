@@ -84,18 +84,22 @@ def stable_topk(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def topk_grid(score: torch.Tensor, cell: int, k_per_cell: int, total_k: int):
-    """Spatially distributed top-k: the best `k_per_cell` of each `cell`-sized
-    tile, then the best `total_k` of those.
-
-    Returns (xy (total_k, 2) float32, scores (total_k,), valid (total_k,)).
-    """
+def cell_topk(score: torch.Tensor, cell: int, k_per_cell: int):
+    """The best `k_per_cell` of each `cell`-sized tile (tiles row-major, the
+    image zero-padded to whole tiles): (values (tiles, k), in-tile index
+    (tiles, k) int64, row-major in the tile)."""
     h, w = score.shape
     gh, gw = -(-h // cell), -(-w // cell)
     s = F.pad(score, (0, gw * cell - w, 0, gh * cell - h))
     cells = s.reshape(gh, cell, gw, cell).permute(0, 2, 1, 3).reshape(gh * gw, cell * cell)
-    vals, idx = stable_topk(cells, min(k_per_cell, cell * cell))
-    c = torch.arange(gh * gw, device=score.device)
+    return stable_topk(cells, min(k_per_cell, cell * cell))
+
+
+def grid_topk(vals: torch.Tensor, idx: torch.Tensor, gw: int, cell: int, total_k: int):
+    """The best `total_k` of `cell_topk`'s candidates of an image `gw` tiles
+    wide, taken tile-major: (xy (total_k, 2) float32, scores (total_k,),
+    valid (total_k,))."""
+    c = torch.arange(vals.shape[0], device=vals.device)
     ys = ((c // gw) * cell)[:, None] + idx // cell
     xs = ((c % gw) * cell)[:, None] + idx % cell
     flat_vals, flat_x, flat_y = vals.reshape(-1), xs.reshape(-1), ys.reshape(-1)
@@ -106,3 +110,4 @@ def topk_grid(score: torch.Tensor, cell: int, k_per_cell: int, total_k: int):
     top_vals, top_i = stable_topk(flat_vals, total_k)
     xy = torch.stack([flat_x[top_i], flat_y[top_i]], -1).to(torch.float32)
     return xy, top_vals, top_vals > 0.0
+

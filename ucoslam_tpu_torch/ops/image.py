@@ -3,7 +3,8 @@
 Port of `ucoslam_tpu/ops/image.py`. Images are (H, W) float32 tensors. The
 pyramid resizes every level directly from level 0 with the same anti-aliased
 triangle-filter matrices as the reference, as two float32 matmuls (TF32 must
-be off on the card, see `slam/system.py`).
+be off on the card, see `slam/system.py`), into one packed buffer
+(`Pyramid`): the detector's kernels read every level from it in one launch.
 """
 
 from __future__ import annotations
@@ -77,33 +78,52 @@ def _resize_weight_mat_f32(in_size: int, out_size: int) -> np.ndarray:
     return np.ascontiguousarray(np.where(in_span[None, :], weights, f32(0.0)).T.astype(f32))
 
 
+@functools.lru_cache(maxsize=64)
+def resize_matrices(in_shape: tuple[int, int], out_shape: tuple[int, int], device, jax_f32: bool = False):
+    """(rows (oh, h), columns (ow, w)): the anti-aliased resize matrices
+    from in_shape to out_shape on `device` (`_resize_weight_mat`, or with
+    jax_f32 `_resize_weight_mat_f32`), uploaded once per shapes and device.
+    Callers must not modify them."""
+    build = _resize_weight_mat_f32 if jax_f32 else _resize_weight_mat
+    (h, w), (oh, ow) = in_shape, out_shape
+    return tuple(torch.from_numpy(build(i, o)).to(device) for i, o in ((h, oh), (w, ow)))
+
+
 def resize_linear(img: torch.Tensor, out_shape: tuple[int, int]) -> torch.Tensor:
     """jax.image.resize(img, out_shape, "linear") (antialiased when it
     shrinks), as two float32 matmuls with its own weight matrices: the
     detector-resolution scaling of the reference's frame ingest."""
-    h, w = img.shape
-    oh, ow = out_shape
-    ah = torch.from_numpy(_resize_weight_mat_f32(h, oh)).to(img.device)
-    aw = torch.from_numpy(_resize_weight_mat_f32(w, ow)).to(img.device)
+    ah, aw = resize_matrices(tuple(img.shape), tuple(out_shape), img.device, jax_f32=True)
     return (ah @ img) @ aw.T
 
 
-def resize_matmul(img: torch.Tensor, out_shape: tuple[int, int]) -> torch.Tensor:
-    """Anti-aliased bilinear resize as two float32 matmuls."""
-    h, w = img.shape
-    oh, ow = out_shape
-    if (oh, ow) == (h, w):
-        return img
-    ah = torch.from_numpy(_resize_weight_mat(h, oh)).to(img.device)
-    aw = torch.from_numpy(_resize_weight_mat(w, ow)).to(img.device)
-    return (ah @ img) @ aw.T
+class Pyramid:
+    """The levels of an (h, w) image on one device: their shapes, where each
+    lies in the packed buffer (row-major, level after level), and the
+    resize matrices of levels 1 and up (`resize_matrices`)."""
 
+    def __init__(self, h: int, w: int, n_levels: int, scale_factor: float, device):
+        self.shapes = pyramid_shapes(h, w, n_levels, scale_factor)
+        self.offsets = [0]
+        for lh, lw in self.shapes:
+            self.offsets.append(self.offsets[-1] + lh * lw)
+        self.weights = [None if s == (h, w) else resize_matrices((h, w), s, device) for s in self.shapes]
 
-def build_pyramid(img: torch.Tensor, n_levels: int, scale_factor: float):
-    """(H, W) float32 -> list of per-level images, each resized from level 0."""
-    h, w = img.shape
-    shapes = pyramid_shapes(h, w, n_levels, scale_factor)
-    return [img] + [resize_matmul(img, shapes[lv]) for lv in range(1, n_levels)]
+    def __call__(self, img: torch.Tensor) -> torch.Tensor:
+        """(h, w) float32 -> the packed levels, (sum of h_l * w_l,) float32;
+        level 0 is the image, each other level two matmuls from it."""
+        buf = torch.empty(self.offsets[-1], dtype=torch.float32, device=img.device)
+        for lv, wts in enumerate(self.weights):
+            out = self.level(buf, lv)
+            if wts is None:
+                out.copy_(img)
+            else:
+                torch.matmul(wts[0] @ img, wts[1].T, out=out)
+        return buf
+
+    def level(self, buf: torch.Tensor, lv: int) -> torch.Tensor:
+        """Level lv of a packed buffer, as an (h_l, w_l) view."""
+        return buf[self.offsets[lv] : self.offsets[lv + 1]].view(self.shapes[lv])
 
 
 def extract_patches(img: torch.Tensor, xy: torch.Tensor, radius: int) -> torch.Tensor:

@@ -41,7 +41,7 @@ N_FRAMES = 12
 LAYER_SPANS = {
     "slam.process", "slam.initialize", "frontend.extract", "frontend.upload", "frontend.detect",
     "frontend.describe", "frontend.pack", "tracking.track", "tracking.project_match", "tracking.refine",
-    "mapping.new_keyframe", "mapping.insert", "mapping.new_points", "mapping.fuse", "mapping.cull",
+    "mapping.new_keyframe", "mapping.insert", "mapping.new_points", "mapping.stereo_points", "mapping.fuse", "mapping.cull",
     "mapping.kfdb", "mapping.loop", "ba.local_ba", "ba.build", "ba.solve", "ba.lm_step", "ba.apply",
 }
 
@@ -274,6 +274,28 @@ def test_trace_fleet_layer_readings():
     assert set(got) == {"frontend.launches_per_frame", "tracking.launches_per_frame", "frontend.wait_ms",
                         "tracking.wait_ms", "counter.B1_per_frame", "counter.F1_per_frame", "counter.F2_per_frame"}
     assert [d for _, _, _, d in trace_fleet.depth_spans(spans)] == [0, 1, 0, 0, 1, 1, 2, 2, 3, 0, 1]
+
+
+def test_trace_fleet_stereo_readings():
+    """The stereo step's and the stereo points' launches and waits, per
+    frame and per keyframe; left out where no span of theirs ran."""
+    spans = [
+        _span("frontend.extract", 0, 10, 1, 0), _span("frontend.stereo", 5, 9, 2, 1),
+        _span("mapping.new_keyframe", 10, 40, 3, 0), _span("mapping.new_points", 11, 30, 4, 3),
+        _span("mapping.stereo_points", 11, 20, 5, 4),
+        _span("frontend.extract", 40, 50, 6, 0), _span("frontend.stereo", 45, 49, 7, 6),
+    ]
+    stats = {1: {"launches": 4, "wait_ns": 0.0, "kernel_ns": 0.0}, 2: {"launches": 30, "wait_ns": 1e6, "kernel_ns": 0.0},
+             4: {"launches": 8, "wait_ns": 0.0, "kernel_ns": 0.0}, 5: {"launches": 6, "wait_ns": 3e6, "kernel_ns": 0.0},
+             7: {"launches": 30, "wait_ns": 3e6, "kernel_ns": 0.0}}
+    got = trace_fleet.program_metrics([{"spans": spans, "stats": stats}])
+    assert got["frontend.stereo_launches_per_frame"] == 30 and got["frontend.launches_per_frame"] == 32
+    assert got["frontend.stereo_wait_ms"] == pytest.approx(2.0)
+    assert got["mapping.stereo_points_launches_per_keyframe"] == 6
+    assert got["mapping.stereo_points_wait_ms"] == pytest.approx(3.0)
+    mono = [s for s in spans if s[0] not in ("frontend.stereo", "mapping.stereo_points")]
+    got = trace_fleet.program_metrics([{"spans": mono, "stats": stats}])
+    assert not any("stereo" in k for k in got) and got["mapping.launches_per_keyframe"] == 8
 
 
 def test_trace_fleet_idle_gaps_by_program_span():

@@ -107,6 +107,26 @@ def test_triangulate_batched_equals_pairs():
         assert torch.allclose(Xb[i], Xi, rtol=1e-6, atol=1e-6)
 
 
+def test_null_vector_bounds_each_eigensolver_call(monkeypatch):
+    """A keyframe's 6 x 2048 epipolar systems are solved in calls of at most
+    EIGH_CHUNK systems (one call of all of them reserved 6.3 GiB of
+    eigensolver workspace a SLAM process on the card, and four processes
+    ran it out of memory), with each system's vector as in one call."""
+    A = torch.from_numpy(np.random.default_rng(3).normal(size=(6, 2048, 4, 4)).astype(np.float32))
+    Ad = A.double()
+    whole = torch.linalg.eigh(Ad.transpose(-1, -2) @ Ad)[1][..., :, 0].float()
+    sizes, eigh = [], torch.linalg.eigh
+
+    def counted(m):
+        sizes.append(m.shape[0])
+        return eigh(m)
+
+    monkeypatch.setattr(torch.linalg, "eigh", counted)
+    got = triangulate.null_vector(A)
+    assert torch.equal(got, whole)
+    assert sum(sizes) == 6 * 2048 and max(sizes) <= triangulate.EIGH_CHUNK < 6 * 2048
+
+
 @pytest.fixture(scope="module", params=[2, 8, 12])
 def matched_views(request):
     """Frame 0 and frame j of an oracle sequence, matched by the reference."""

@@ -1,8 +1,9 @@
 """A traced run of a benchmark cell with the program's own spans.
 
-Runs one cell of `BENCHMARK.json` through the benchmark's fleet generator
-(`portbench/core/fleet.py`) as `portbench/run.py --trace 1` runs it, with
-two changes made from here, in this process and in each stream's worker:
+Runs one cell of `BENCHMARK.json` through the generator its traffic mix
+names (`portbench/core/fleet.py` or `stereo_fleet.py`, which share the
+fleet's traces) as `portbench/run.py --trace 1` runs it, with two changes
+made from here, in this process and in each stream's worker:
 the device trace is the program's (`utils.timers.DeviceTrace`: the CUDA
 runtime's calls beside the kernels, on the spans' clock by marker launches),
 and, with `--program-spans 1`, the program's tracer records its spans over
@@ -37,7 +38,8 @@ SPANS_ENV = "UCOSLAM_TRACE_FLEET_SPANS"
 #: the marker launches' kernel, left out of the benchmark's view of the trace
 MARK_KERNEL = "spin_kernel"
 
-#: the nine per-layer readings: (layer spans, spans left out, what, per)
+#: the per-layer readings: (layer spans, spans left out, what, per); a
+#: reading whose spans never ran (the stereo step of a mono cell) is left out
 LAYERS = {
     "frontend.launches_per_frame": (("frontend.extract",), (), "launches", "frame"),
     "tracking.launches_per_frame": (("tracking.track", "tracking.relocalize"), (), "launches", "frame"),
@@ -47,6 +49,11 @@ LAYERS = {
     "tracking.wait_ms": (("tracking.track", "tracking.relocalize"), (), "wait_ns", "frame"),
     "mapping.wait_ms": (("mapping.new_keyframe",), ("ba.local_ba",), "wait_ns", "mapping.new_keyframe"),
     "ba.wait_ms": (("ba.local_ba",), (), "wait_ns", "ba.local_ba"),
+    "frontend.stereo_launches_per_frame": (("frontend.stereo",), (), "launches", "frame"),
+    "frontend.stereo_wait_ms": (("frontend.stereo",), (), "wait_ns", "frame"),
+    "mapping.stereo_points_launches_per_keyframe": (("mapping.stereo_points",), (), "launches",
+                                                    "mapping.new_keyframe"),
+    "mapping.stereo_points_wait_ms": (("mapping.stereo_points",), (), "wait_ns", "mapping.new_keyframe"),
 }
 #: the layers whose shares of the window's kernels a run reports
 SHARES = {
@@ -103,14 +110,15 @@ def count_spans(streams: list[dict], name: str) -> int:
 
 
 def program_metrics(streams: list[dict]) -> dict[str, float]:
-    """The nine readings of the program's spans over the streams (each a
-    dict of its `spans` and their `stats`); a reading with nothing to read
-    (no frame, keyframe or local BA in the window) is left out."""
+    """The readings of the program's spans over the streams (each a dict of
+    its `spans` and their `stats`); a reading with nothing to read (no
+    frame, keyframe or local BA in the window, or no span of its layer) is
+    left out."""
     frames = count_spans(streams, "frontend.extract")
     out = {}
     for metric, (names, excluded, what, per) in LAYERS.items():
         n = frames if per == "frame" else count_spans(streams, per)
-        if not n:
+        if not n or not any(count_spans(streams, name) for name in names):
             continue
         tot = layer_totals(streams, names, excluded)[what]
         out[metric] = tot / n if what == "launches" else 1e-6 * tot / n
@@ -221,9 +229,10 @@ def _program_device_trace():
 
 
 def worker_main(conn, spec: dict) -> None:
-    """A stream's worker (`fleet.worker_main`) with the program's device
-    trace, whose runtime calls and spans go into the stream's record."""
-    from portbench.core import fleet, trace
+    """A stream's worker (the generator's `worker_main`) with the program's
+    device trace, whose runtime calls and spans go into the stream's record
+    (the generators take both through `trace` and `fleet`)."""
+    from portbench.core import fleet, manifest, trace
 
     dt = trace.DeviceTrace = _program_device_trace()
     record = fleet._trace_record
@@ -234,7 +243,7 @@ def worker_main(conn, spec: dict) -> None:
         return out
 
     fleet._trace_record = trace_record
-    fleet.worker_main(conn, spec)
+    manifest.generator(spec["traffic"]["generator"]).worker_main(conn, spec)
 
 
 def run(workload: str, seed: int, seconds: float, spans: bool) -> dict:
@@ -256,7 +265,8 @@ def run(workload: str, seed: int, seconds: float, spans: bool) -> dict:
         extra["clock_error_ns_max"] = max(tr["clock_error_ns"] for tr in traces)
         return out
 
-    fleet.merge_traces, fleet.worker_main = merge_traces, worker_main
+    fleet.merge_traces = merge_traces
+    manifest.generator(ctx.traffic["generator"]).worker_main = worker_main
     out = bench.execute(ctx)
     tr = out.get("trace")
     per_layer = {m["name"]: manifest.metric_reader(m["name"])(tr) for m in manifest.metrics_of(man, "per_layer", workload)} if tr else {}

@@ -221,10 +221,10 @@ class FrameExtractor:
             # z >= baseline <=> disparity <= bf / bl (= fx); fx when bl == 0,
             # where bf == 0 gives every keypoint depth 0, as in the reference
             max_disp = float(np.float32(cam.bf) / np.float32(cam.bl)) if cam.bl > 0 else cam.fx
-            with timers.span("frontend.pack"):
+            with timers.span("frontend.stereo"):
                 depth = stereo_depth(f, gray_l, gray_r, kr.xy, kr.desc, kr.octave, kr.valid, cam.bf, max_disp,
                                      float(np.float32(self.params.maxDescDistance)))
-                return f.replace(depth=depth)
+            return f.replace(depth=depth)
 
 
 #: stereo_depth's SAD patch half-width and its search half-range along the row (px)

@@ -15,15 +15,25 @@ from ucoslam_tpu_torch.config import CHI2_2D
 from ucoslam_tpu_torch.geometry.camera import CameraParams
 
 
+#: systems a call of the batched eigensolver takes at most: on the card its
+#: workspace grows with the batch (6.3 GiB for a keyframe's 6 x 2048
+#: epipolar candidates, 12.6 GiB for the two-view init's 4 x 2048), and each
+#: batch size leaves a block of another size in the caching allocator, so
+#: four SLAM processes ran one card out of memory
+EIGH_CHUNK = 2048
+
+
 def null_vector(A: torch.Tensor) -> torch.Tensor:
     """(..., R, C) -> (..., C): the unit eigenvector of the smallest
     eigenvalue of A^T A, in A's dtype. The eigenproblem is solved in
     float64: in float32 its squared condition number leaves the vector of a
     poorly conditioned system (a short baseline, a near-degenerate sample)
-    with errors of several percent, which no two eigensolvers share."""
+    with errors of several percent, which no two eigensolvers share. Each
+    system is solved alone, so the batch is cut into EIGH_CHUNK pieces."""
     Ad = A.double()
-    _, vecs = torch.linalg.eigh(Ad.transpose(-1, -2) @ Ad)
-    return vecs[..., :, 0].to(A.dtype)
+    M = (Ad.transpose(-1, -2) @ Ad).reshape(-1, A.shape[-1], A.shape[-1])
+    vecs = torch.cat([torch.linalg.eigh(m)[1][..., :, 0] for m in M.split(EIGH_CHUNK)]) if len(M) else M[..., 0]
+    return vecs.reshape(A.shape[:-2] + A.shape[-1:]).to(A.dtype)
 
 
 def _projection_rows(T_g2c: torch.Tensor, cam: CameraParams) -> torch.Tensor:

@@ -332,8 +332,9 @@ class MapManager:
             if p.detectMarkers and frame.markers.valid.any():
                 self._add_marker_observations(world_map, kf_slot, frame)
         with timers.span("mapping.new_points"):
-            self._create_stereo_points(world_map, kf_slot, frame, host_depth=host_depth, host_valid=host_valid,
-                                       host_ids=ids)
+            with timers.span("mapping.stereo_points"):
+                self._create_stereo_points(world_map, kf_slot, frame, host_depth=host_depth, host_valid=host_valid,
+                                           host_ids=ids)
             self._create_epipolar_points(world_map, kf_slot)
         with timers.span("mapping.fuse"):
             self._fuse_duplicates(world_map, kf_slot)
